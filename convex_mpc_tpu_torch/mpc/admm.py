@@ -1,0 +1,520 @@
+"""Batch-global adaptive ADMM (OSQP-style) for the structured condensed QP.
+
+Port of ``convex_mpc_tpu/mpc/admm.py::solve_adaptive`` on its production
+branch (``StructuredQp`` input, ``snap_first=False``): Ruiz equilibration,
+the KKT inverse by ``spd_inverse``, 25-iteration chunks of the structured
+ADMM kernel, per-scenario residual / stall / small-force accepts, the
+bounded rho descent with rescue and gate steps, refactor-on-demand, and the
+certified active-set polish ladder.
+
+The JAX ``lax.while_loop`` / ``lax.cond`` predicates are batch-global, so
+here they are host reads: whether to polish and whether to refactor/continue
+are read once per chunk, and the ladder's round condition once per round.
+The dense-``QpData`` input, the snap-first compaction path and ``debug``
+printing are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from convex_mpc_tpu_torch._device import const
+from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
+from convex_mpc_tpu_torch.mpc import kernels
+from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
+from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
+
+
+class AdmmState(NamedTuple):
+    """Carried solver state (warm start between MPC steps). Unscaled."""
+
+    x: torch.Tensor  # (B, nz)
+    z: torch.Tensor  # (B, m)
+    y: torch.Tensor  # (B, m)
+    rho: torch.Tensor  # (B,)
+
+
+class AdmmSolution(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    prim_res: torch.Tensor
+    dual_res: torch.Tensor
+    iters: torch.Tensor  # (B,) int32
+    state: AdmmState
+
+
+class ScaledStructuredQp(NamedTuple):
+    p_diag: torch.Tensor  # (B, nz)
+    p_dense: torch.Tensor  # (B, nz, nz)
+    q: torch.Tensor  # (B, nz)
+    C: torch.Tensor  # (B, nb, 4, 3)
+    box_diag: torch.Tensor  # (B, nz)
+    l: torch.Tensor  # (B, m)
+    u: torch.Tensor  # (B, m)
+    d: torch.Tensor  # (B, nz)
+    e: torch.Tensor  # (B, m)
+    c: torch.Tensor  # (B,)
+
+
+def _isfinite_or(x, scale):
+    return torch.where(torch.isfinite(x), scale, 1.0)
+
+
+def ruiz_equilibrate_structured(p_dense, q, C, box_diag, l, u, iters: int = 10
+                                ) -> ScaledStructuredQp:
+    """Ruiz + OSQP cost normalization on the block-form condensed QP
+    (deferred scaling: the sweeps carry only d, e, c)."""
+    B, nz = q.shape
+    nb = C.shape[1]
+    m_fr = 4 * nb
+    dtype, dev = q.dtype, q.device
+    P0a = torch.abs(p_dense)
+    C0a = torch.abs(C)
+    q0a = torch.abs(q)
+    b0a = torch.abs(box_diag)
+
+    d = torch.ones((B, nz), dtype=dtype, device=dev)
+    e_fr = torch.ones((B, nb, 4), dtype=dtype, device=dev)
+    e_box = torch.ones((B, nz), dtype=dtype, device=dev)
+    c = torch.ones((B,), dtype=dtype, device=dev)
+
+    def colP_at(d, c):
+        return c[:, None] * d * torch.amax(d[:, :, None] * P0a, dim=-2)
+
+    def inv_sqrt_clip(v):
+        return torch.clamp(1.0 / torch.sqrt(torch.clamp(v, min=1e-12)), 1e-6, 1e6)
+
+    for _ in range(iters):
+        colC = d * torch.amax(e_fr[:, :, :, None] * C0a, dim=-2).reshape(B, nz)
+        box_s = e_box * b0a * d
+        col_norm = torch.maximum(torch.maximum(colC, box_s), colP_at(d, c))
+        d = d * inv_sqrt_clip(col_norm)
+        d_blk = d.reshape(B, nb, 1, 3)
+        row_fr = torch.amax(e_fr[:, :, :, None] * C0a * d_blk, dim=-1)
+        row_box = e_box * b0a * d
+        e_fr = e_fr * inv_sqrt_clip(row_fr)
+        e_box = e_box * inv_sqrt_clip(row_box)
+        gamma = 1.0 / torch.clamp(
+            torch.maximum(torch.mean(colP_at(d, c), dim=-1),
+                          c * torch.amax(d * q0a, dim=-1)),
+            min=1e-12,
+        )
+        c = c * torch.clamp(gamma, 1e-6, 1e6)
+
+    p = (c[:, None, None] * d[:, :, None] * d[:, None, :]) * p_dense
+    q_s = c[:, None] * d * q
+    C_s = e_fr[:, :, :, None] * C * d.reshape(B, nb, 1, 3)
+    box_s = e_box * box_diag * d
+    e = torch.cat([e_fr.reshape(B, m_fr), e_box], dim=-1)
+    return ScaledStructuredQp(
+        p_diag=torch.diagonal(p, dim1=-2, dim2=-1), p_dense=p, q=q_s, C=C_s,
+        box_diag=box_s, l=l * _isfinite_or(l, e), u=u * _isfinite_or(u, e),
+        d=d, e=e, c=c,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Certified active-set polish
+# ---------------------------------------------------------------------------
+class PolishOps(NamedTuple):
+    """Per-scenario operands of the polish (RAW, unscaled problem)."""
+
+    p_dense: torch.Tensor  # (B, nz, nz)
+    q: torch.Tensor  # (B, nz)
+    l: torch.Tensor  # (B, m)
+    u: torch.Tensor  # (B, m)
+    is_eq: torch.Tensor  # (B, m)
+    C: torch.Tensor  # (B, nb, 4, 3)
+    box: torch.Tensor  # (B, nz)
+    x_it: torch.Tensor  # (B, nz) raw-space iterate
+    o_x: torch.Tensor  # (B,) iterate objective
+    v_x: torch.Tensor  # (B,) iterate max constraint violation
+
+
+def _bmv(M, v):
+    return torch.einsum("bnm,bm->bn", M, v)
+
+
+def _polish_ax(o: PolishOps, xc):
+    B, nz = o.q.shape
+    nb = nz // 3
+    fr = torch.einsum("bnfr,bnr->bnf", o.C, xc.reshape(B, nb, 3)).reshape(B, 4 * nb)
+    return torch.cat([fr, o.box * xc], dim=-1)
+
+
+def _polish_viol(o: PolishOps, xc):
+    ax = _polish_ax(o, xc)
+    v = torch.maximum(o.l - ax, ax - o.u)
+    return torch.amax(torch.clamp(v, min=0.0), dim=-1)
+
+
+def _polish_obj(o: PolishOps, xc):
+    return 0.5 * torch.sum(xc * _bmv(o.p_dense, xc), -1) + torch.sum(o.q * xc, -1)
+
+
+def _polish_core(o: PolishOps, a_lo, a_hi, reduced: bool):
+    """Project the iterate onto the active manifold; least-squares duals.
+
+    Returns (x_pol, y_rows, stat_res). ``reduced=True`` solves the reduced
+    equality-constrained subproblem exactly (nz x nz formation + SPD
+    inverse); ``reduced=False`` keeps the iterate's null-space component.
+    """
+    B, nz = o.q.shape
+    nb = nz // 3
+    m_fr = 4 * nb
+    dtype, dev = o.q.dtype, o.q.device
+    face_rows = const(("face_rows", nb), dev,
+                      lambda d: torch.arange(m_fr, device=d).reshape(nb, 4))
+    blk_cols = const(("blk_cols", nb), dev, lambda d: torch.arange(nz, device=d).reshape(nb, 3))
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye = torch.eye(nz, dtype=dtype, device=dev)
+
+    act = a_lo | a_hi
+    t_all = torch.where(a_lo, o.l, torch.where(a_hi, o.u, 0.0))
+    m_face = act[:, :m_fr][:, face_rows]
+    t_face = t_all[:, :m_fr][:, face_rows] * m_face
+    m_pin = act[:, m_fr:][:, blk_cols]
+    t_pin = t_all[:, m_fr:][:, blk_cols] * m_pin
+    coef_pin = o.box[:, blk_cols]
+    Cm = torch.cat(
+        [o.C * m_face[..., None], eye3 * (coef_pin * m_pin)[..., :, None]], dim=2
+    )  # (B, nb, 7, 3)
+    b7 = torch.cat([t_face, t_pin], dim=2)  # (B, nb, 7)
+    CC = torch.einsum("bnkr,bnlr->bnkl", Cm, Cm)
+    trace = torch.diagonal(CC, dim1=-2, dim2=-1).sum(-1)
+    ridge = 1e-7 * torch.clamp(trace[..., None, None], min=1e-2)
+    CCi = inv_small_unrolled(CC + ridge * torch.eye(7, dtype=dtype, device=dev))
+
+    def cc_solve(v):
+        return torch.einsum("bnkl,bnl->bnk", CCi, v)
+
+    x_p = torch.einsum("bnkr,bnk->bnr", Cm, cc_solve(b7)).reshape(B, nz)
+    Pi_b = eye3 - torch.einsum("bnkr,bnkl,bnls->bnrs", Cm, CCi, Cm)
+    if reduced:
+        Pi = torch.zeros((B, nz, nz), dtype=dtype, device=dev)
+        Pi[:, blk_cols[:, :, None], blk_cols[:, None, :]] = Pi_b
+        PPi = torch.matmul(o.p_dense, Pi)
+        H = torch.matmul(Pi, PPi) + (eye - Pi)
+        rhs_r = -torch.einsum("bnm,bn->bm", Pi, o.q + _bmv(o.p_dense, x_p))
+        djr = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-30))
+        Hn = H / (djr[:, :, None] * djr[:, None, :]) + 1e-6 * eye
+        if nz % 32 == 0:
+            Hinv = spd_inverse(Hn)
+        else:
+            Hinv = spd_inverse_plain(Hn)
+        zr = torch.einsum("bnm,bn->bm", Hinv, rhs_r / djr) / djr
+        x_pol = x_p + torch.einsum("bmn,bn->bm", Pi, zr)
+    else:
+        x_pol = x_p + torch.einsum(
+            "bnrs,bns->bnr", Pi_b, o.x_it.reshape(B, nb, 3)).reshape(B, nz)
+    g_b = -(_bmv(o.p_dense, x_pol) + o.q).reshape(B, nb, 3)
+    y7 = cc_solve(torch.einsum("bnkr,bnr->bnk", Cm, g_b))
+    stat = torch.einsum("bnkr,bnk->bnr", Cm, y7) - g_b
+    stat_res = torch.amax(torch.abs(stat), dim=(-2, -1))
+    y_rows = torch.cat(
+        [y7[..., :4].reshape(B, m_fr), y7[..., 4:].reshape(B, nz)], dim=-1
+    ) * act
+    return x_pol, y_rows, stat_res
+
+
+def _polish_refine(o: PolishOps, a_lo, a_hi, x_r, y_r):
+    """Add violated rows, drop wrong-sign-multiplier rows."""
+    fin_l = torch.isfinite(o.l)
+    fin_u = torch.isfinite(o.u)
+    ax_r = _polish_ax(o, x_r)
+    add_lo = fin_l & (o.l - ax_r > 1e-6)
+    add_hi = fin_u & (ax_r - o.u > 1e-6)
+    ysc = 1e-3 * torch.clamp(torch.amax(torch.abs(y_r), -1, keepdim=True), min=1.0)
+    drop = (a_lo & ~o.is_eq & (y_r > ysc)) | (a_hi & (y_r < -ysc))
+    n_lo = (a_lo | add_lo) & ~drop
+    n_hi = ((a_hi | add_hi) & ~drop) & ~n_lo
+    return n_lo, n_hi
+
+
+def _polish_certify(o: PolishOps, a_lo, a_hi, x_c, y_c, stat_c, eps_abs):
+    feas = (_polish_viol(o, x_c) <= o.v_x + eps_abs) & torch.isfinite(x_c).all(-1)
+    ysc = 1e-3 * torch.clamp(torch.amax(torch.abs(y_c), -1, keepdim=True), min=1.0)
+    sign_ok = torch.where(
+        a_lo & ~o.is_eq, y_c <= ysc, torch.where(a_hi, y_c >= -ysc, True)
+    ).all(-1)
+    stat_ok = stat_c <= 0.05 * torch.clamp(torch.amax(torch.abs(o.q), -1), min=1.0)
+    o_ok = _polish_obj(o, x_c) <= o.o_x + 1e-3 * torch.abs(o.o_x) + 1e-6
+    return feas & sign_ok & stat_ok & o_ok
+
+
+def _polish_ladder(o: PolishOps, act_lo, act_hi, polish_rounds: int, eps_abs):
+    """Reduced-solve refinement ladder: round 1, then rounds while any
+    scenario is uncertified (one host read per round). Returns
+    (x_pol_raw, ok_pol)."""
+    B = o.q.shape[0]
+    big = torch.finfo(o.q.dtype).max
+    a_lo, a_hi = act_lo, act_hi
+    x_pol_raw = torch.zeros_like(o.x_it)
+    best_obj = torch.full((B,), big, dtype=o.q.dtype, device=o.q.device)
+    ok_pol = torch.zeros((B,), dtype=torch.bool, device=o.q.device)
+    r = 0
+    while True:
+        x_k, y_k, st_k = _polish_core(o, a_lo, a_hi, reduced=True)
+        ok_k = _polish_certify(o, a_lo, a_hi, x_k, y_k, st_k, eps_abs)
+        o_k = torch.where(ok_k, _polish_obj(o, x_k), big)
+        # a certified scenario keeps its point through later rounds
+        take = (o_k < best_obj) & ~ok_pol
+        x_pol_raw = torch.where(take[:, None], x_k, x_pol_raw)
+        best_obj = torch.where(take, o_k, best_obj)
+        ok_pol = ok_pol | ok_k
+        a_lo, a_hi = _polish_refine(o, a_lo, a_hi, x_k, y_k)
+        r += 1
+        if r >= polish_rounds or bool(ok_pol.all()):
+            break
+    return x_pol_raw, ok_pol
+
+
+# ---------------------------------------------------------------------------
+# KKT system
+# ---------------------------------------------------------------------------
+class KktSetup(NamedTuple):
+    """The Ruiz-scaled problem and the rho-independent parts of
+    M(rho) = P + sigma I + rho (K + diag(K_box))."""
+
+    s: ScaledStructuredQp
+    is_eq: torch.Tensor  # (B, m) equality rows
+    w_vec: torch.Tensor  # (B, m) per-row rho weights (eq_scale on equality rows)
+    P_mat: torch.Tensor  # (B, nz, nz)
+    K: torch.Tensor  # (B, nz, nz) block-diagonal friction Gram
+    K_box_diag: torch.Tensor  # (B, nz)
+
+
+def kkt_setup(qp: StructuredQp, sigma: float, eq_scale: float, scaling_iters: int) -> KktSetup:
+    B, nz = qp.q.shape
+    nb = nz // 3
+    m_fr = 4 * nb
+    dtype, dev = qp.q.dtype, qp.q.device
+    box_raw = torch.ones((B, nz), dtype=dtype, device=dev)
+    s = ruiz_equilibrate_structured(qp.p_dense, qp.q, qp.C, box_raw, qp.l, qp.u,
+                                    iters=scaling_iters)
+    is_eq = (qp.u - qp.l) < 1e-9
+    w_vec = torch.where(is_eq, eq_scale, 1.0).to(dtype)
+    w_fr, w_box = w_vec[:, :m_fr], w_vec[:, m_fr:]
+    P_mat = s.p_dense + sigma * torch.eye(nz, dtype=dtype, device=dev)
+    K_blocks = torch.einsum("bnfr,bnf,bnfs->bnrs", s.C, w_fr.reshape(B, nb, 4), s.C)
+    eye_nb = torch.eye(nb, dtype=dtype, device=dev)
+    K = (K_blocks[:, :, :, None, :] * eye_nb[None, :, None, :, None]).reshape(B, nz, nz)
+    return KktSetup(s=s, is_eq=is_eq, w_vec=w_vec, P_mat=P_mat, K=K,
+                    K_box_diag=w_box * s.box_diag * s.box_diag)
+
+
+def kkt_matrix(setup: KktSetup, rho) -> torch.Tensor:
+    """M(rho) (B, nz, nz), rho (B,)."""
+    nz = setup.K.shape[-1]
+    eye = torch.eye(nz, dtype=setup.K.dtype, device=setup.K.device)
+    return (setup.P_mat + rho[:, None, None] * setup.K
+            + (rho[:, None] * setup.K_box_diag)[:, :, None] * eye)
+
+
+def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3,
+               scaling_iters: int = 5) -> torch.Tensor:
+    """The solver's Ruiz-scaled KKT matrix of ``qp`` at penalty ``rho`` (B,) —
+    the matrix ``solve_adaptive`` hands to ``spd_inverse``."""
+    return kkt_matrix(kkt_setup(qp, sigma, eq_scale, scaling_iters), rho)
+
+
+def _factorize(setup: KktSetup, rho) -> torch.Tensor:
+    M = kkt_matrix(setup, rho)
+    if M.shape[-1] % 32 == 0:
+        return spd_inverse(M)
+    return spd_inverse_plain(M)
+
+
+# ---------------------------------------------------------------------------
+# Batch-global adaptive solver
+# ---------------------------------------------------------------------------
+def solve_adaptive(
+    qp: StructuredQp,
+    state: AdmmState,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    eq_scale: float = 1e3,
+    eps_abs: float = 1e-4,
+    eps_rel: float = 1e-4,
+    max_iter: int = 600,
+    check_every: int = 25,
+    scaling_iters: int = 5,
+    box_tail: int = 0,
+    rho_refactor_ratio: float = 5.0,
+    stall_tol: float = 0.02,
+    stall_dual_cap: float = 2.5,
+    rho_accept_max: float = 5e-4,
+    debug: bool = False,
+    polish: bool = True,
+    polish_rounds: int = 3,
+    nu: int = 12,
+    small_force_scale: float = 50.0,
+    return_polished: bool = True,
+    snap_first: bool = False,
+) -> AdmmSolution:
+    """Batched adaptive-iteration ADMM with refactor-on-demand (see module doc).
+
+    Every leaf of ``qp``/``state`` carries a leading batch axis. Returns a
+    per-scenario :class:`AdmmSolution`.
+    """
+    if not isinstance(qp, StructuredQp):
+        raise NotImplementedError("solve_adaptive takes the block-form StructuredQp only")
+    if snap_first:
+        raise NotImplementedError("the snap-first compaction path is not ported")
+    if debug:
+        raise NotImplementedError("debug printing is not ported")
+    dtype, dev = qp.q.dtype, qp.q.device
+    B, nz = qp.q.shape
+    m = qp.l.shape[-1]
+    m_fr = m - box_tail
+    if box_tail <= 0:
+        raise ValueError("solve_adaptive requires the condensed box_tail form")
+    nb = nz // 3
+    if m_fr != 4 * nb or nz % nu != 0:
+        raise ValueError("condensed layout: 4 pyramid rows per block, nu | nz")
+    first_step_vars = nu
+
+    C_raw = qp.C
+    box_diag_raw = torch.ones((B, nz), dtype=dtype, device=dev)
+    setup = kkt_setup(qp, sigma, eq_scale, scaling_iters)
+    s, is_eq, w_vec = setup.s, setup.is_eq, setup.w_vec
+
+    x = state.x / s.d
+    z = torch.clamp(state.z * s.e, s.l, s.u)
+    y = s.c[:, None] * state.y / s.e
+    rho = torch.clamp(state.rho, 1e-6, 1e6)
+    if rho.ndim == 0:
+        rho = rho.expand(B).clone()
+
+    box_diag = s.box_diag
+
+    def mv_A(v):
+        fr = torch.einsum("bnfr,bnr->bnf", s.C, v.reshape(B, nb, 3)).reshape(B, m_fr)
+        return torch.cat([fr, box_diag * v], dim=-1)
+
+    def mv_AT(w):
+        fr = torch.einsum("bnfr,bnf->bnr", s.C, w[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
+        return fr + box_diag * w[:, m_fr:]
+
+    def residuals(x, z, y):
+        ax = mv_A(x)
+        aty = mv_AT(y)
+        px = _bmv(s.p_dense, x)
+        rp = torch.amax(torch.abs(ax - z), dim=-1)
+        ep = eps_abs + eps_rel * torch.maximum(
+            torch.amax(torch.abs(ax), dim=-1), torch.amax(torch.abs(z), dim=-1))
+        rd = torch.amax(torch.abs(px + s.q + aty), dim=-1)
+        ed = eps_abs + eps_rel * torch.maximum(
+            torch.amax(torch.abs(px), dim=-1),
+            torch.maximum(torch.amax(torch.abs(aty), dim=-1),
+                          torch.amax(torch.abs(s.q), dim=-1)))
+        return rp / ep, rd / ed
+
+    def chunk_iters(x, z, y, rho, Minv):
+        rho_vec = rho[:, None] * w_vec
+        return kernels.admm_iterations_structured(
+            s.C, box_diag, Minv, s.q, s.l, s.u, rho_vec, x, z, y,
+            iters=check_every, sigma=sigma, alpha=alpha)
+
+    def attempt_polish(x, y):
+        """Certified accept: the reduced ladder for the whole batch (with
+        snap-first off every scenario needs it, so its count is B > 0)."""
+        fin_l = torch.isfinite(qp.l)
+        fin_u = torch.isfinite(qp.u)
+        y_raw = s.e * y / s.c[:, None]
+        y_tol = 1e-3 * torch.amax(torch.abs(y_raw), dim=-1, keepdim=True)
+        act_lo = fin_l & (is_eq | (y_raw < -y_tol))
+        act_hi = fin_u & (~act_lo) & (y_raw > y_tol)
+        x_it_raw = s.d * x
+        zeros_b = torch.zeros((B,), dtype=dtype, device=dev)
+        ops = PolishOps(p_dense=qp.p_dense, q=qp.q, l=qp.l, u=qp.u, is_eq=is_eq,
+                        C=C_raw, box=box_diag_raw, x_it=x_it_raw, o_x=zeros_b, v_x=zeros_b)
+        ops = ops._replace(o_x=_polish_obj(ops, x_it_raw), v_x=_polish_viol(ops, x_it_raw))
+        x_pol_raw, ok_pol = _polish_ladder(ops, act_lo, act_hi, polish_rounds, eps_abs)
+        return x_pol_raw / s.d, ok_pol
+
+    Minv = _factorize(setup, rho)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    conv_iter = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    n_chunks = max_iter // check_every
+    adapt_stride = max(1, 100 // check_every)
+    max_adapts = 3
+    rescue_chunk = 10
+    d_count = torch.zeros((B,), dtype=torch.int32, device=dev)
+    x_pol_buf = torch.zeros_like(x)
+    pol_ok = torch.zeros((B,), dtype=torch.bool, device=dev)
+    log_ratio = float(np.log(rho_refactor_ratio))
+
+    it = 0
+    keep_going = n_chunks > 0
+    while keep_going:
+        x_prev = x
+        x, z, y = chunk_iters(x, z, y, rho, Minv)
+        pr, dr = residuals(x, z, y)
+        rho_ok = rho <= rho_accept_max
+        step = torch.amax(torch.abs(s.d * (x - x_prev)), dim=-1)
+        stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+        newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
+        iters_done = (it + 1) * check_every
+        conv_iter = torch.where(newly & (conv_iter < 0), iters_done, conv_iter).to(torch.int32)
+        converged = converged | newly
+        if polish:
+            at_cap = (it + 1) >= n_chunks
+            want_pol = at_cap or bool(converged.all())  # host read, once per chunk
+            if want_pol:
+                x_pol_buf, pol_ok = attempt_polish(x, y)
+            x_scale = torch.amax(torch.abs((s.d * x)[:, :first_step_vars]), dim=-1)
+            step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
+            if want_pol and not at_cap:
+                converged = converged & pol_ok & step_ok
+            conv_iter = torch.where(converged, conv_iter, -1).to(torch.int32)
+        at_boundary = ((it + 1) % adapt_stride) == 0
+        can = (~converged) & (d_count < max_adapts) if at_boundary else torch.zeros_like(converged)
+        ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
+        rho_desc = torch.clamp(rho * torch.clamp(ratio, 0.1, 1.0), 1e-6, 1e6)
+        moved = torch.abs(torch.log(rho_desc / rho)) > log_ratio
+        descend = can & moved
+        d_count = d_count + descend.to(torch.int32)
+        rho_new = torch.where(descend, rho_desc, rho)
+        if (it + 1) == rescue_chunk:
+            rescue = (~converged) & (rho <= rho_accept_max)
+        else:
+            rescue = torch.zeros_like(converged)
+        rho_new = torch.where(rescue, 0.1, rho_new)
+        d_count = torch.where(rescue, 0, d_count).to(torch.int32)
+        gate_desc = (~converged) & (pr <= 1.0) & (dr <= 1.0) & (~rho_ok)
+        rho_new = torch.where(gate_desc, torch.clamp(rho * 0.1, min=1e-4), rho_new)
+        # one host read per chunk: refactor? and does any scenario go on?
+        flags = torch.stack([(descend | rescue | gate_desc).any(), (~converged).any()])
+        do_refactor, any_open = (bool(v) for v in flags.tolist())
+        if do_refactor:
+            Minv = _factorize(setup, rho_new)
+        rho = rho_new
+        it += 1
+        keep_going = any_open and it < n_chunks
+
+    if polish and return_polished:
+        x = torch.where(pol_ok[:, None], x_pol_buf, x)
+
+    x_out = s.d * x
+    y_out = s.e * y / s.c[:, None]
+    z_out = z / s.e
+    ax = torch.cat([
+        torch.einsum("bnfr,bnr->bnf", C_raw, x_out.reshape(B, nb, 3)).reshape(B, m_fr),
+        box_diag_raw * x_out,
+    ], dim=-1)
+    viol_ret = torch.amax(torch.clamp(torch.maximum(qp.l - ax, ax - qp.u), min=0.0), dim=-1)
+    use_pol_point = pol_ok if (polish and return_polished) else torch.zeros_like(pol_ok)
+    rp = torch.where(use_pol_point, viol_ret, torch.amax(torch.abs(ax - z_out), dim=-1))
+    px = _bmv(qp.p_dense, x_out)
+    aty = (torch.einsum("bnfr,bnf->bnr", C_raw, y_out[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
+           + box_diag_raw * y_out[:, m_fr:])
+    rd = torch.amax(torch.abs(px + qp.q + aty), dim=-1)
+    iters = torch.where(conv_iter < 0, it * check_every, conv_iter).to(torch.int32)
+    return AdmmSolution(
+        x=x_out, y=y_out, prim_res=rp, dual_res=rd, iters=iters,
+        state=AdmmState(x=x_out, z=z_out, y=y_out, rho=rho),
+    )

@@ -1,0 +1,130 @@
+"""The structured ADMM chunk: the hand-written CUDA kernel and its plain version.
+
+Replaces ``convex_mpc_tpu/mpc/kernels.py::admm_iterations_structured`` (a
+Pallas TPU kernel). The CUDA kernel is ``csrc/admm_structured.cu`` (one
+block per scenario, Minv and the vectors resident in shared memory for the
+whole chunk; design and bound in its header). The plain version is the JAX
+twin ``admm_iterations_structured_xla`` transcribed: the same unrolled block
+sums and the same binary-tree fold, each product and sum a separate eager
+op, so the kernel (compiled without multiply-add contraction) can agree
+with it bit for bit on the card. The wrapper takes the plain version for
+CPU tensors only; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from convex_mpc_tpu_torch.utils import cuda_build
+
+_SMEM_LIMIT = 232448  # bytes of dynamic shared memory one block may use
+_WARP = 32
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
+                                     iters: int, sigma: float = 1e-6, alpha: float = 1.6):
+    """``iters`` over-relaxed ADMM steps per scenario, plain PyTorch."""
+    B, nb = C.shape[0], C.shape[1]
+    nz, m_fr = nb * 3, nb * 4
+    np2 = _next_pow2(max(nz, 128))
+
+    def mv_AT(w):
+        wf = w[:, :m_fr].reshape(B, nb, 4)
+        acc = C[:, :, 0, :] * wf[:, :, 0:1]
+        for f in range(1, 4):
+            acc = acc + C[:, :, f, :] * wf[:, :, f:f + 1]
+        return acc.reshape(B, nz) + box_diag * w[:, m_fr:]
+
+    def mv_A(v):
+        vr = v.reshape(B, nb, 3)
+        acc = C[:, :, :, 0] * vr[:, :, 0:1]
+        for r in range(1, 3):
+            acc = acc + C[:, :, :, r] * vr[:, :, r:r + 1]
+        return torch.cat([acc.reshape(B, m_fr), box_diag * v], dim=-1)
+
+    def kkt_matvec(rhs):
+        prod = rhs[:, None, :] * Minv  # (B, nz, nz) [n, m]
+        prod = torch.nn.functional.pad(prod, (0, np2 - nz))
+        k = np2
+        while k > 1:
+            h = k // 2
+            prod = prod[:, :, :h] + prod[:, :, h:k]
+            k = h
+        return prod[:, :, 0]
+
+    x, z, y = x0, z0, y0
+    for _ in range(iters):
+        rhs = sigma * x - q + mv_AT(rho_vec * z - y)
+        xt = kkt_matvec(rhs)
+        axt = mv_A(xt)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        ax_rel = alpha * axt + (1.0 - alpha) * z
+        z_new = torch.clamp(ax_rel + y / rho_vec, l, u)
+        y = y + rho_vec * (ax_rel - z_new)
+        x, z = x_new, z_new
+    return x, z, y
+
+
+def _launch(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, iters, sigma, alpha):
+    cuda_build.require_cuda("admm_iterations_structured", C, box_diag, Minv, q, l, u,
+                            rho_vec, x0, z0, y0)
+    B, nb = C.shape[0], C.shape[1]
+    nz, m = 3 * nb, 7 * nb
+    xo = torch.empty_like(x0)
+    zo = torch.empty_like(z0)
+    yo = torch.empty_like(y0)
+    vpl = _next_pow2(max(nz, 128)) // _WARP
+    if vpl > 16:
+        raise ValueError(f"admm_iterations_structured kernel supports nz <= 512, got {nz}")
+    vec_bytes = (12 * nb + 5 * nz + 6 * m) * 4
+    minv_in_smem = int(vec_bytes + nz * nz * 4 <= _SMEM_LIMIT - 1024)
+    lib = cuda_build.load("admm_structured")
+    fn = lib.admm_structured_f32
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    f32 = lambda v: float(np.float32(v))
+    stream = torch.cuda.current_stream(C.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, xo, zo, yo)]
+    err = fn(*ptrs, B, nb, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), vpl,
+             minv_in_smem, stream)
+    cuda_build.check(err, "admm_iterations_structured")
+    return xo, zo, yo
+
+
+def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
+                               iters: int, sigma: float = 1e-6, alpha: float = 1.6):
+    """The structured ADMM chunk; returns (x, z, y)."""
+    B, nb = C.shape[0], C.shape[1]
+    nz, m = 3 * nb, 7 * nb
+    args = (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0)
+    shapes = [(B, nb, 4, 3), (B, nz), (B, nz, nz), (B, nz), (B, m), (B, m), (B, m),
+              (B, nz), (B, m), (B, m)]
+    for name, t, s in zip("C box_diag Minv q l u rho_vec x0 z0 y0".split(), args, shapes):
+        if tuple(t.shape) != s:
+            raise ValueError(f"admm_iterations_structured: {name} has shape {tuple(t.shape)}, expected {s}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"admm_iterations_structured: {name} must be f32, got {t.dtype}")
+        if t.device != C.device:
+            raise ValueError("admm_iterations_structured: all operands on one device")
+    if C.device.type == "cpu":
+        return admm_iterations_structured_plain(*args, iters=iters, sigma=sigma, alpha=alpha)
+    if C.device.type != "cuda":
+        raise ValueError(f"admm_iterations_structured runs on CPU or CUDA tensors, got {C.device}")
+    args = [t.contiguous() for t in args]
+    out = _launch(*args, iters, sigma, alpha)
+    admm_iterations_structured.launches += 1
+    return out
+
+
+admm_iterations_structured.launches = 0

@@ -1,0 +1,75 @@
+"""Batched SPD inverse: the hand-written CUDA kernel and its plain version.
+
+Replaces ``convex_mpc_tpu/ops/chol_kernel.py::spd_inverse`` (a Pallas TPU
+kernel). The CUDA kernel is ``csrc/spd_inverse.cu`` (one block per matrix,
+the whole matrix in shared memory; design and bound in its header). The
+wrapper takes the plain PyTorch version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
+
+Both versions return NaN for every matrix whose Cholesky meets a pivot that
+is not positive: the polish certificate relies on that signal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from convex_mpc_tpu_torch.utils import cuda_build
+
+# n must be a multiple of N_MULTIPLE (the solver dispatches here on
+# nz % 32 == 0; the kernel's panels are 16 wide). MAX_N is the largest such
+# n whose n x (n + 4) f32 working set fits one block's shared memory
+# (232,448 B).
+N_MULTIPLE = 32
+MAX_N = 224
+
+
+def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
+    """Cholesky, triangular solve, Gram — the JAX function's off-TPU path.
+
+    ``torch.linalg.cholesky`` raises where JAX returns NaN, so this uses
+    ``cholesky_ex`` and writes NaN into every matrix whose ``info != 0``.
+    """
+    L, info = torch.linalg.cholesky_ex(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    out = torch.matmul(Linv.transpose(-1, -2), Linv)
+    return torch.where((info != 0)[:, None, None], float("nan"), out)
+
+
+def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
+    cuda_build.require_cuda("spd_inverse", A, out)
+    lib = cuda_build.load("spd_inverse")
+    fn = lib.spd_inverse_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1], stream)
+    cuda_build.check(err, "spd_inverse")
+
+
+def spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Batched SPD inverse of (B, n, n) f32, n a multiple of ``N_MULTIPLE``."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] % N_MULTIPLE != 0:
+        raise ValueError(f"spd_inverse expects (B, n, n) with n % {N_MULTIPLE} == 0, "
+                         f"got {tuple(A.shape)}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"spd_inverse is f32-only, got {A.dtype}")
+    if A.device.type == "cpu":
+        return spd_inverse_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"spd_inverse runs on CPU or CUDA tensors, got {A.device}")
+    if A.shape[1] > MAX_N:
+        raise ValueError(f"spd_inverse kernel holds n <= {MAX_N} in shared memory, got n={A.shape[1]}")
+    A = A.contiguous()
+    out = torch.empty_like(A)
+    if A.shape[0] > 0:
+        _launch(A, out)
+        spd_inverse.launches += 1
+    return out
+
+
+spd_inverse.launches = 0

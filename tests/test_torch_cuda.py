@@ -1,0 +1,65 @@
+"""The port's CUDA kernels against their plain versions — needs the card.
+
+Marked ``cuda``; each test skips when no CUDA device is present (decided
+inside the test). Imports no JAX: the inputs are built in torch from a numpy
+seed (``chip_smoke.structured_problem``). The repo's ``tests/conftest.py``
+configures JAX, so on a machine without JAX run, from the repo root:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Bars as in tests/test_torch_mpc.py: spd_inverse within 5e-5 x max|plain|
+with |A out - I| < 1e-4 on a random SPD batch; the ADMM chunk within
+atol 2e-6 / rtol 1e-5 of its plain version.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import structured_problem  # noqa: E402
+
+from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
+from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+def test_spd_inverse_kernel_matches_plain():
+    _need_cuda()
+    rng = np.random.default_rng(7)
+    M = rng.normal(size=(16, 192, 192)).astype(np.float32)
+    A = torch.as_tensor(M @ np.swapaxes(M, -1, -2) / 192 + 3 * np.eye(192, dtype=np.float32),
+                        device="cuda")
+    before = TCK.spd_inverse.launches
+    out = TCK.spd_inverse(A)
+    torch.cuda.synchronize()
+    assert TCK.spd_inverse.launches == before + 1
+    ref = TCK.spd_inverse_plain(A)
+    assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    assert (A @ out - torch.eye(192, device="cuda")).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("iters", [1, 25, 150])
+def test_admm_kernel_matches_plain(iters):
+    _need_cuda()
+    args = structured_problem(8, 64, seed=11, dev=torch.device("cuda"))
+    before = TK.admm_iterations_structured.launches
+    out = TK.admm_iterations_structured(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations_structured.launches == before + 1
+    ref = TK.admm_iterations_structured_plain(*args, iters=iters)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-5)
