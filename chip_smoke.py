@@ -5,20 +5,32 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. card identity (``nvidia-smi`` name and power limit);
-2. build both CUDA kernels from ``convex_mpc_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together);
-3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes — ``spd_inverse`` at B = 512, n = 192 on a random SPD
-   batch and on the solver's KKT matrix at attractor-region rho (1e-4); the
-   structured ADMM chunk at B = 512, nb = 64 for 25 and 150 iterations —
-   with CUDA-event times of the kernel, the plain version and a library
-   yardstick that the port never calls;
+2. build the four CUDA kernels from ``convex_mpc_tpu_torch/csrc`` (one
+   ``nvcc`` per source, started together);
+3. each kernel against its plain PyTorch version on the card at its path's
+   shapes, with CUDA-event times of the kernel, the plain version and a
+   yardstick the port never calls: ``spd_inverse`` at B = 512, n = 192 on a
+   random SPD batch and on the solver's KKT matrix at attractor-region rho
+   (1e-4); the structured ADMM chunk at B = 512, nb = 64 for 25 and 150
+   iterations; the fused tick window at B = 512 for 20 ticks (5e-3 per
+   channel) and one tick (2e-4), and a ragged B = 5 (at most ``MAX_FLIPS``
+   scenarios that took another contact branch within ``FLIP_MARGIN`` of its
+   threshold are excused from the bar), with the eager
+   ``engine._run_ticks`` window as its yardstick; the dense ADMM
+   iterations at B = 512, A (448, 192), for 25 and 50 iterations (rtol and
+   atol 2e-4);
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
    DEFAULT_CONFIG)`` at B = 512, horizon 16 from the start state of the JAX
-   package's ``bench.py``; 16 settle cycles, then one timed 16-cycle window
-   with the kernels' launch counters set to 0 just before it and read just
-   after; then one B = 8 cycle on the card and the same cycle on the CPU
-   (plain versions), whose applied forces must agree within 2.0 N.
+   package's ``bench.py``; 16 settle cycles, then one timed 16-cycle window,
+   and the same window from the same state with ``use_fused_ticks=True``,
+   each with the kernels' launch counters set to 0 just before it and read
+   just after; then B = 8 cycles on the card and on the CPU (plain
+   versions), whose applied forces must agree within 2.0 N, unfused (one
+   cycle) and fused (two cycles);
+5. the legacy path: ``mpc_cycle_fixed`` at B = 512 with
+   ``solver_iters=150`` (``bench.py``'s curve point) for a short window, its
+   counters set to 0 just before it; then one B = 8 cycle on the card and on
+   the CPU within 2.0 N.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -34,6 +46,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +57,14 @@ HORIZON = 16
 SETTLE = 16
 WINDOW = 16
 B_SMALL = 8
+FIXED_WINDOW = 4
+FIXED_ITERS = 150
+
+# the tick window's comparison may excuse at most MAX_FLIPS scenarios that took
+# another contact branch, each only if it flipped within FLIP_MARGIN (m) of the
+# threshold (f32 foot heights of ~0.3 m round at ~3e-8 m)
+MAX_FLIPS = 4
+FLIP_MARGIN = 1e-5
 
 # NVIDIA H100 SXM data-sheet peaks (dense, full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -269,6 +290,289 @@ def check_admm_chunk(dev) -> dict:
                 library_ms=lib_ms)
 
 
+TickTraj = namedtuple("TickTraj", ["pos_des_world", "vel_des_world"])
+
+
+def tick_battery(B: int, seed: int, dev):
+    """``run_ticks_fused``'s arguments for a random mid-gait batch covering
+    swing/stance edges and contact (tests/test_tick_fused.py's battery, built
+    in torch from the same numpy draws)."""
+    from convex_mpc_tpu_torch.control import gait as G
+    from convex_mpc_tpu_torch.control import leg as L
+    from convex_mpc_tpu_torch.control import reference as R
+    from convex_mpc_tpu_torch.models import dynamics as D
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.sim import physics as P
+
+    rng = np.random.default_rng(seed)
+    dyn = D.build_dyn(device=dev)
+    contact = P.default_contact(device=dev)
+    gait = G.make_gait_params(3.0, 0.6, device=dev)
+    q = np.tile(P.init_plant(dyn, contact=contact).q.cpu().numpy(), (B, 1))
+    q[:, 0:2] += rng.normal(0, 0.02, (B, 2))
+    q[:, 2] += rng.normal(0, 0.01, B)
+    q[:, 7:] += rng.normal(0, 0.05, (B, 12))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    plant = P.PlantState(q=f(q), dq=f(rng.normal(0, 0.2, (B, 18))))
+    leg = L.LegControlState(
+        last_mask=torch.as_tensor(rng.integers(0, 3, (B, 4)), dtype=torch.int32, device=dev),
+        takeoff_time=f(rng.uniform(0, 0.05, (B, 4))),
+        swing_p0=f(rng.normal(0, 0.01, (B, 4, 3)) + np.array([0.2, 0.15, 0.02])),
+        swing_td=f(rng.normal(0, 0.01, (B, 4, 3)) + np.array([0.25, 0.15, 0.02])),
+    )
+    u0 = f(rng.normal(0, 5, (B, 4, 3)) + np.array([0, 0, 40.0]))
+    cmd = R.BodyCommand(vx=f(np.full(B, 0.5)), vy=f(np.zeros(B)), z_pos=f(np.full(B, 0.27)),
+                        yaw_rate=f(rng.normal(0, 0.5, B)))
+    traj = TickTraj(pos_des_world=f(q[:, 0:3] + np.array([0.02, 0, 0])),
+                    vel_des_world=f(np.tile([0.5, 0, 0.0], (B, 1))))
+    return (dyn, E.broadcast_batch(gait, B), E.broadcast_batch(contact, B), cmd, traj, u0,
+            plant, leg, f(rng.normal(0, 0.1, B)), f(rng.normal(0, 0.1, B)),
+            f(rng.normal(0, 0.1, (B, 6))), f(rng.uniform(0.1, 0.4, B)))
+
+
+def _window_fields(res) -> dict:
+    (plant, leg, yc, yp, vf, t), ticks = res
+    d = {"q": plant.q, "dq": plant.dq, "yaw_cont": yc, "yaw_prev": yp, "vel_filt": vf, "t": t}
+    d.update({f"leg.{k}": v for k, v in zip(leg._fields, leg)})
+    d.update({f"ticks.{k}": v for k, v in zip(ticks._fields, ticks)})
+    return d
+
+
+def window_misses(out, ref, rel: float):
+    """Per-scenario misses of a tick window against a reference: floats
+    beyond ``rel`` x the per-channel scale (max |ref| over batch and time,
+    per trailing component), integers unequal. Returns (miss (B,) bool,
+    {field: worst error over scale, or count of unequal integer entries},
+    max absolute float error)."""
+    o, r = _window_fields(out), _window_fields(ref)
+    B = r["q"].shape[0]
+    miss = torch.zeros(B, dtype=torch.bool, device=r["q"].device)
+    worst, max_abs = {}, 0.0
+    for k, d in r.items():
+        a = o[k]
+        if not d.is_floating_point():
+            bad = (a != d).reshape(B, -1)
+            worst[k] = int(bad.sum())
+            miss |= bad.any(-1)
+            continue
+        d64, a64 = d.double(), a.double()
+        if d.ndim > 1:
+            scale = d64.abs().reshape(-1, d.shape[-1]).amax(0) + 1e-6
+        else:
+            scale = d64.abs().amax() + 1e-6
+        diff = (a64 - d64).abs()
+        err = (diff / scale).reshape(B, -1)
+        worst[k] = float(err.nan_to_num(float("inf")).max())
+        max_abs = max(max_abs, float(diff.nan_to_num(float("inf")).max()))
+        miss |= ~(err <= rel).all(-1)
+    return miss, worst, max_abs
+
+
+def contact_branches(res, contact):
+    """Per-tick contact branch flags from a window's logs: the plant's
+    ``active`` (penetration > 0) and the controller's ``touching``, with
+    the signed margins of each test, (B, steps, 4)."""
+    from convex_mpc_tpu_torch.control import leg as L
+
+    foot_z = res[1].foot_pos_now[..., 2]
+    pen = contact.ground_z[:, None, None] - (foot_z - contact.foot_radius[:, None, None])
+    touch = (L.GROUND_Z + 1e-3) - (foot_z - L.FOOT_RADIUS)
+    return pen > 0.0, touch >= 0.0, pen, touch
+
+
+def rounding_flips(out, ref, contact):
+    """Scenarios whose contact branches (``active``, ``touching``) differ
+    between two windows, and which of them flipped within rounding: at the
+    first tick where the flags differ, every flipped test's margin is under
+    ``FLIP_MARGIN`` in both windows. Returns (excused (B,) bool, {scenario:
+    that margin in m})."""
+    a_k, t_k, pen_k, touch_k = contact_branches(out, contact)
+    a_p, t_p, pen_p, touch_p = contact_branches(ref, contact)
+    # the larger of the two windows' |margin| on each flipped test, 0 elsewhere
+    margin = torch.maximum(
+        torch.where(a_k != a_p, torch.maximum(pen_k.abs(), pen_p.abs()), 0.0),
+        torch.where(t_k != t_p, torch.maximum(touch_k.abs(), touch_p.abs()), 0.0))
+    flips = ((a_k != a_p) | (t_k != t_p)).any(-1)  # (B, steps)
+    excused = torch.zeros(flips.shape[0], dtype=torch.bool, device=flips.device)
+    margins = {}
+    for b in flips.any(-1).nonzero()[:, 0].tolist():
+        first = int(flips[b].nonzero()[0, 0])
+        margins[b] = float(margin[b, first].max())
+        excused[b] = margins[b] < FLIP_MARGIN
+    return excused, margins
+
+
+# Operations of tick_window.cu, worked out from its arithmetic with structural
+# zeros and constant ones left out. A mul, add, sub, division, sqrt or
+# transcendental (sinf, cosf, atan2f, fmodf) counts 1, an FMA 2; compares,
+# selects, min/max and negation count 0. Helpers: a 3x3 product 45, a 3x3
+# matvec 15, a cross product 9, the adjugate 3x3 inverse 41, quat_to_R 36,
+# quat_mul 28; on the forward-mode Dual (value, derivative) an add is 2, a
+# Dual x Dual product 4 and a Dual x float product 2.
+TICK_OPS = {
+    # every scenario-tick, 14,824: the model<Dual> 12,246 (quat_to_R 75,
+    # R v and R w 60, trunk 388, four legs 4 x 2,885 = FK chain 300 + three
+    # bodies 2,174 + foot 312 + B/Br blocks 99, mass and bias assembly 183);
+    # attitude and yaw unwrap 13; qdot 39; velocity filter 33; phase clock
+    # and yaw sin/cos 3; per leg 111 (gait mask 3, touching 1, penetration 2,
+    # implicit-step right side 102, joint diagonal 3); body right side 75;
+    # arrow factor of the implicit matrix 1,455; arrow solve 414; integration 102
+    "tick": 14824,
+    # per leg in swing: min-jerk and bump trajectory 69, s_phase 1, the
+    # operational-space inertia (J M^-1 J')^-1 653, feedforward and torque 54
+    "swing_leg": 777,
+    # per scenario-tick with a leg in swing: the arrow factor of M behind the
+    # operational-space inertia
+    "swing_tick": 1452,
+    "stance_leg": 15,   # per stance leg: tau = -Q' u0
+    "early_leg": 30,    # per swing leg touching the ground: the early-contact force
+    # per leg in contact: normal and friction coefficients 9, J' f0 13, the
+    # dt J' C J blocks of the implicit matrix 405
+    "active_leg": 427,
+    "takeoff": 30,      # per leg taking off: hip offset 6 and touchdown target 24
+    "window": 12,       # per scenario: gait and filter constants
+}
+
+
+def tick_window_ops(out, last_mask0, contact) -> int:
+    """Operations that a window of tick_window.cu needs on this run's data
+    (``TICK_OPS``): which legs swing, touch, take off and are in contact is
+    read from the window's logs (``out``) and its input ``last_mask``."""
+    mask = out[1].contact_mask
+    B, steps, _ = mask.shape
+    swing = mask == 0
+    prev = torch.cat([last_mask0[:, None, :], mask[:, :-1]], dim=1)
+    active, touching, _, _ = contact_branches(out, contact)
+    n = lambda x: int(x.sum())  # noqa: E731
+    return (TICK_OPS["tick"] * B * steps + TICK_OPS["window"] * B
+            + TICK_OPS["swing_leg"] * n(swing) + TICK_OPS["swing_tick"] * n(swing.any(-1))
+            + TICK_OPS["stance_leg"] * n(~swing) + TICK_OPS["early_leg"] * n(swing & touching)
+            + TICK_OPS["active_leg"] * n(active) + TICK_OPS["takeoff"] * n(swing & (prev != 0)))
+
+
+def check_tick_window(dev) -> dict:
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.sim import tick_fused as TF
+
+    worst = 0.0
+    for B, steps, rel, seed in [(B_MAIN, 20, 5e-3, 13), (B_MAIN, 1, 2e-4, 14), (5, 20, 5e-3, 1)]:
+        args = tick_battery(B, seed, dev)
+        out = TF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
+        torch.cuda.synchronize()
+        ref = TF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)  # on the card
+        if (B, steps) == (B_MAIN, 20):
+            out_main = out
+        miss, errs, max_abs = window_misses(out, ref, rel)
+        excused, margins = rounding_flips(out, ref, args[2])
+        n_miss, n_flip = int(miss.sum()), len(margins)
+        print(f"tick window B={B} steps={steps}: worst |k-plain| / channel scale "
+              f"{max(errs[k] for k in errs if not k.endswith('mask')):.3e} (bar {rel}), max "
+              f"|k-plain| {max_abs:.3e}; integer mismatches {{last_mask: "
+              f"{errs['leg.last_mask']}, contact_mask: {errs['ticks.contact_mask']}}}; "
+              f"scenarios off the bar {n_miss}, with a different contact branch {n_flip}")
+        if n_flip:
+            print(f"  branch-flip scenarios and their margin at the first flip (m): "
+                  f"{dict(list(margins.items())[:16])}; excused (margin < {FLIP_MARGIN} m): "
+                  f"{int(excused.sum())}")
+        if n_flip > MAX_FLIPS:
+            fail(f"tick window: {n_flip} scenarios took another contact branch (at most "
+                 f"{MAX_FLIPS} may, each within rounding of its threshold)")
+        unexplained = (miss & ~excused).nonzero()[:, 0].tolist()
+        if unexplained:
+            fail(f"tick window kernel disagrees with its plain version (B={B}, steps={steps}) "
+                 f"in scenarios {unexplained[:16]} not excused as rounding flips: {errs}")
+        worst = max(worst, max_abs)
+
+    B, steps = B_MAIN, 20
+    args = tick_battery(B, 13, dev)
+    dyn, gait, contact, cmd, traj, u0, plant, leg, yc, yp, vf, t0 = args
+    carry, batch = TF._inputs(gait, contact, cmd, traj, u0, plant, leg, yc, yp, vf, t0)
+    cst = TF.make_consts(dyn, 45.0)
+    alpha = E._filter_alpha(30.0, 1e-3)
+    ms = cuda_ms(lambda: TF._launch(carry, batch, cst, steps, 1e-3, alpha))
+    plain_ms = cuda_ms(lambda: TF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0), reps=2)
+    lib_ms = cuda_ms(lambda: E._run_ticks(*args, steps, 45.0, 1e-3, 30.0), reps=2)
+    ops = tick_window_ops(out_main, leg.last_mask, contact)  # the same battery's window
+    # bytes: carry (78 floats) and inputs (35) read, carry written, 71 log floats a tick
+    b_bytes = 4 * B * (78 + 35 + 78 + 71 * steps) + 4 * 220
+    b_ms, b_by = bound(b_bytes, ops)
+    print(f"tick window times (B={B}, {steps} ticks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"eager port _run_ticks window {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{ops} operations, {ops / (B * steps):.1f} per scenario-tick, from TICK_OPS; "
+          f"{b_bytes} bytes)")
+    # no single PyTorch call computes the window: library_ms is null, and the
+    # eager tick loop above is the yardstick
+    return dict(name="run_ticks_fused", route="cuda",
+                source="convex_mpc_tpu_torch/csrc/tick_window.cu",
+                replaces="convex_mpc_tpu/sim/tick_fused.py:1031",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def dense_problem(B: int, nb: int, seed: int, dev):
+    """The structured problem with its constraint matrix written out dense:
+    A (B, 7 nb, 3 nb) = [friction blocks; diag(box)]."""
+    C, box, Minv, q, l, u, rho, x, z, y = structured_problem(B, nb, seed, dev)
+    nz, m_fr = 3 * nb, 4 * nb
+    A = torch.zeros((B, m_fr + nz, nz), device=dev)
+    for k in range(nb):
+        A[:, 4 * k:4 * k + 4, 3 * k:3 * k + 3] = C[:, k]
+    A[:, m_fr:, :] = torch.diag_embed(box)
+    return [a.contiguous() for a in (A, Minv, q, l, u, rho, x, z, y)]
+
+
+def admm_dense_bmm(A, Minv, q, l, u, rho, x, z, y, iters, sigma=1e-6, alpha=1.6):
+    """Library yardstick: the dense iterations as torch.bmm calls (timed
+    only; the port never calls it)."""
+    At = A.transpose(1, 2)
+    for _ in range(iters):
+        rhs = sigma * x - q + torch.bmm(At, (rho * z - y)[:, :, None])[:, :, 0]
+        xt = torch.bmm(Minv, rhs[:, :, None])[:, :, 0]
+        axt = torch.bmm(A, xt[:, :, None])[:, :, 0]
+        x_new = alpha * xt + (1.0 - alpha) * x
+        ax_rel = alpha * axt + (1.0 - alpha) * z
+        z_new = torch.clamp(ax_rel + y / rho, l, u)
+        y = y + rho * (ax_rel - z_new)
+        x, z = x_new, z_new
+    return x, z, y
+
+
+def check_admm_dense(dev) -> dict:
+    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations, admm_iterations_plain
+
+    B, nb = B_MAIN, 64
+    args = dense_problem(B, nb, seed=11, dev=dev)
+    worst = 0.0
+    for iters in (25, 50):
+        out = admm_iterations(*args, iters=iters)
+        torch.cuda.synchronize()
+        ref = admm_iterations_plain(*args, iters=iters)
+        errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
+        ok = all(torch.allclose(a, b, atol=2e-4, rtol=2e-4) for a, b in zip(out, ref))
+        print(f"admm_iterations (dense) B={B} A={tuple(args[0].shape[1:])} iters={iters}: "
+              f"max|k-plain| x/z/y = {errs} (bar atol 2e-4 rtol 2e-4)")
+        if not (ok and all(torch.isfinite(a).all() for a in out)):
+            fail(f"admm_iterations disagrees with its plain version at {iters} iterations")
+        worst = max(worst, *errs)
+    iters = 25
+    ms = cuda_ms(lambda: admm_iterations(*args, iters=iters))
+    plain_ms = cuda_ms(lambda: admm_iterations_plain(*args, iters=iters), reps=3)
+    lib_ms = cuda_ms(lambda: admm_dense_bmm(*args, iters=iters), reps=3)
+    m, n = args[0].shape[1], args[0].shape[2]
+    in_bytes = 4 * B * (m * n + n * n + 2 * n + 6 * m)
+    out_bytes = 4 * B * (n + 2 * m)
+    # per iteration: A't and A xt 2mn each, Minv rhs 2n^2, vector updates ~12m + 6n
+    flops = B * iters * (4 * m * n + 2 * n * n + 12 * m + 6 * n)
+    b_ms, b_by = bound(in_bytes + out_bytes, flops)
+    print(f"admm_iterations (dense) times (25 iters): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="admm_iterations", route="cuda",
+                source="convex_mpc_tpu_torch/csrc/admm_dense.cu",
+                replaces="convex_mpc_tpu/mpc/kernels.py:186",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
@@ -311,65 +615,119 @@ def healthy(state) -> bool:
     return bool(torch.isfinite(state.plant.q).all() and ((z > 0.1) & (z < 0.6)).all())
 
 
-def main_path(dev) -> dict:
-    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations_structured
+def _all_kernels():
+    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations, admm_iterations_structured
     from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
-    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.sim.tick_fused import run_ticks_fused
+
+    return {"spd_inverse": spd_inverse, "admm_iterations_structured": admm_iterations_structured,
+            "run_ticks_fused": run_ticks_fused, "admm_iterations": admm_iterations}
+
+
+def drive(name, cycle, args, state, cycles, kw, profile=None):
+    """``cycles`` timed cycles with every kernel's launch counter set to 0 just
+    before and read just after. Returns (state, stats)."""
+    kernels = _all_kernels()
+    if profile is not None:
+        kw = dict(kw, profile=profile)
+    iters = []
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(cycles):
+        state, log = cycle(*args, state, **kw)
+        iters.append(log.solver_iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    it = torch.cat(iters).float().cpu().numpy()
+    B = state.plant.q.shape[0]
+    out = {"batch": B, "window_cycles": cycles, "solves_per_s": B * cycles / wall,
+           "cycle_ms": wall / cycles * 1e3, "iters_mean": float(it.mean()),
+           "iters_p99": float(np.percentile(it, 99))}
+    if profile:
+        out.update({f"{k}_ms": profile[k] / cycles * 1e3 for k in ("update", "solve", "apply")})
+    out.update(launches_per_cycle={n: v / cycles for n, v in launches.items()},
+               healthy=healthy(state))
+    print(f"{name} window: " + json.dumps(out))
+    if not out["healthy"]:
+        fail(f"{name}: the batch is not healthy after the window (non-finite or z outside (0.1, 0.6))")
+    out["launches"] = launches
+    return state, out
+
+
+def card_vs_cpu(name, cycle, dyn, batch, cycles, kw):
+    """``cycles`` cycles of the first B_SMALL scenarios of ``batch`` (gait,
+    contact, schedule, state) on the card and on the CPU (plain versions);
+    the applied forces must agree within 2.0 N after each."""
     from convex_mpc_tpu_torch.utils import interop
+
+    small = [interop.tree_map(lambda x: x[:B_SMALL].contiguous(), a) for a in batch]
+    cpu = torch.device("cpu")
+    dyn_cpu = interop.tree_map(lambda x: x.to(cpu), dyn)
+    gpu_args = small[:3]
+    cpu_args = [interop.tree_map(lambda x: x.to(cpu), a) for a in small[:3]]
+    s_gpu, s_cpu = small[3], interop.tree_map(lambda x: x.to(cpu), small[3])
+    for c in range(cycles):
+        s_gpu, _ = cycle(dyn, *gpu_args, s_gpu, **kw)
+        s_cpu, _ = cycle(dyn_cpu, *cpu_args, s_cpu, **kw)
+        du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
+        print(f"{name}: B={B_SMALL} cycle {c}, card vs CPU plain versions: max|du0| = "
+              f"{du0:.4f} N (bar 2.0 N)")
+        if not du0 < 2.0:
+            fail(f"{name}: the card's cycle disagrees with the CPU cycle")
+
+
+def main_path(dev) -> dict:
+    """Phase 4: the production cycle, unfused and with the fused tick window."""
+    from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
 
     kw = engine_kwargs_batched(DEFAULT_CONFIG)
     dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev)
+    args = (dyn, gait_b, contact_b, sched_b)
     t0 = time.perf_counter()
     for _ in range(SETTLE):
-        state, _ = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state, **kw)
+        state, _ = E.mpc_cycle_batch(*args, state, **kw)
     torch.cuda.synchronize()
     print(f"main path: {SETTLE} settle cycles at B={B_MAIN} in {time.perf_counter() - t0:.2f} s")
 
-    profile: dict = {}
-    iters = []
-    spd_inverse.launches = 0
-    admm_iterations_structured.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(WINDOW):
-        state, log = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state,
-                                       profile=profile, **kw)
-        iters.append(log.solver_iters)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"spd_inverse": spd_inverse.launches,
-                "admm_iterations_structured": admm_iterations_structured.launches}
-    it = torch.cat(iters).float().cpu().numpy()
-    out = {
-        "batch": B_MAIN, "horizon": HORIZON, "window_cycles": WINDOW,
-        "solves_per_s": B_MAIN * WINDOW / wall,
-        "cycle_ms": wall / WINDOW * 1e3,
-        "iters_mean": float(it.mean()), "iters_p99": float(np.percentile(it, 99)),
-        "update_ms": profile["update"] / WINDOW * 1e3,
-        "solve_ms": profile["solve"] / WINDOW * 1e3,
-        "apply_ms": profile["apply"] / WINDOW * 1e3,
-        "launches_per_cycle": {k: v / WINDOW for k, v in launches.items()},
-        "healthy": healthy(state),
-    }
-    print("main path window: " + json.dumps(out))
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
-    if not out["healthy"]:
-        fail("the batch is not healthy after the window (non-finite or z outside (0.1, 0.6))")
+    settled = state
+    _, main = drive("main path", E.mpc_cycle_batch, args, settled, WINDOW, kw, profile={})
+    if min(main["launches"][k] for k in ("spd_inverse", "admm_iterations_structured")) <= 0:
+        fail(f"a kernel of the main path was never launched: {main['launches']}")
+    fkw = dict(kw, use_fused_ticks=True)
+    state, fused = drive("fused-tick path", E.mpc_cycle_batch, args, settled, WINDOW, fkw,
+                         profile={})
+    fl = fused["launches"]
+    if fl["run_ticks_fused"] != WINDOW or min(fl["spd_inverse"], fl["admm_iterations_structured"]) <= 0:
+        fail(f"fused-tick path: run_ticks_fused launched {fl['run_ticks_fused']} times in "
+             f"{WINDOW} cycles, or a solve kernel never ran: {fl}")
+    print("main vs fused-tick window, ms per cycle: " + json.dumps(
+        {k: [main[k], fused[k]] for k in ("cycle_ms", "update_ms", "solve_ms", "apply_ms")}))
 
-    # one B = 8 cycle on the card and the same cycle on the CPU
-    take = lambda tree, d: interop.tree_map(lambda x: x[:B_SMALL].to(d), tree)
-    small = [take(x, dev) for x in (gait_b, contact_b, sched_b, state)]
-    s_gpu, _ = E.mpc_cycle_batch(dyn, *small, **kw)
-    cpu = torch.device("cpu")
-    dyn_cpu = interop.tree_map(lambda x: x.to(cpu), dyn)
-    s_cpu, _ = E.mpc_cycle_batch(dyn_cpu, *[take(x, cpu) for x in small], **kw)
-    du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
-    print(f"B={B_SMALL} cycle, card vs CPU plain versions: max|du0| = {du0:.4f} N (bar 2.0 N)")
-    if not du0 < 2.0:
-        fail("the card's cycle disagrees with the CPU cycle")
-    out["launches"] = launches
-    return out
+    batch = (gait_b, contact_b, sched_b, settled)
+    card_vs_cpu("main path", E.mpc_cycle_batch, dyn, batch, 1, kw)
+    card_vs_cpu("fused-tick path", E.mpc_cycle_batch, dyn, batch, 2, fkw)
+    return {"main": main, "fused": fused}
+
+
+def fixed_path(dev) -> dict:
+    """Phase 5: the legacy fixed-segment solver's cycle."""
+    from convex_mpc_tpu_torch.sim import engine as E
+
+    kw = dict(solver_iters=FIXED_ITERS)
+    dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev)
+    args = (dyn, gait_b, contact_b, sched_b)
+    E.mpc_cycle_fixed(*args, state, **kw)  # first use: allocator and library warm-up
+    _, fixed = drive("legacy fixed-segment path", E.mpc_cycle_fixed, args, state, FIXED_WINDOW,
+                     kw)
+    if fixed["launches"]["admm_iterations"] <= 0:
+        fail(f"the legacy path never launched admm_iterations: {fixed['launches']}")
+    card_vs_cpu("legacy fixed-segment path", E.mpc_cycle_fixed, dyn,
+                (gait_b, contact_b, sched_b, state), 1, kw)
+    return fixed
 
 
 def main() -> None:
@@ -398,15 +756,20 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     kkt = attractor_kkt(dev)
-    kernels = [check_spd_inverse(kkt), check_admm_chunk(dev)]
+    kernels = [check_spd_inverse(kkt), check_admm_chunk(dev), check_tick_window(dev),
+               check_admm_dense(dev)]
     del kkt
     torch.cuda.empty_cache()
 
-    path = main_path(dev)
+    paths = main_path(dev)
+    paths["fixed"] = fixed_path(dev)
+    # each kernel's launches from the run of its own path
+    runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
+            "run_ticks_fused": "fused", "admm_iterations": "fixed"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        k["launches"] = path["launches"][k["name"]]
+        k["launches"] = paths[runs[k["name"]]]["launches"][k["name"]]
     kernels = [{key: k[key] for key in order} for k in kernels]
     print(ident)
     print(json.dumps({"kernels": kernels}))

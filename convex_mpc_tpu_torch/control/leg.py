@@ -17,6 +17,14 @@ from convex_mpc_tpu_torch.models import dynamics as D
 from convex_mpc_tpu_torch.models import kinematics as K
 from convex_mpc_tpu_torch.ops import linalg as lx
 
+# controller gains and contact geometry, named once: compute_torques' defaults
+# and the fused tick window (sim/tick_fused.py) both read these
+KP = 500.0
+KD = 200.0
+GROUND_Z = 0.0
+FOOT_RADIUS = 0.022
+EARLY_CONTACT_FZ = 15.0
+
 
 class LegObs(NamedTuple):
     J_feet: torch.Tensor  # (B, 4, 3, 18)
@@ -75,11 +83,11 @@ def compute_torques(
     vel_des_world,  # (B, 3)
     yaw_rate_des,  # (B,)
     t,  # (B,)
-    kp: float = 500.0,
-    kd: float = 200.0,
-    ground_z: float = 0.0,
-    foot_radius: float = 0.022,
-    early_contact_fz: float = 15.0,
+    kp: float = KP,
+    kd: float = KD,
+    ground_z: float = GROUND_Z,
+    foot_radius: float = FOOT_RADIUS,
+    early_contact_fz: float = EARLY_CONTACT_FZ,
     raibert_clamp: float | None = None,
 ) -> tuple[LegOutput, LegControlState]:
     """One 1 kHz controller tick for all four legs of every scenario."""

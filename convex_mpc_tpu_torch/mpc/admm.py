@@ -1,17 +1,22 @@
-"""Batch-global adaptive ADMM (OSQP-style) for the structured condensed QP.
+"""OSQP-style ADMM for the condensed MPC QP: the adaptive and the fixed-segment solver.
 
-Port of ``convex_mpc_tpu/mpc/admm.py::solve_adaptive`` on its production
-branch (``StructuredQp`` input, ``snap_first=False``): Ruiz equilibration,
-the KKT inverse by ``spd_inverse``, 25-iteration chunks of the structured
-ADMM kernel, per-scenario residual / stall / small-force accepts, the
-bounded rho descent with rescue and gate steps, refactor-on-demand, and the
-certified active-set polish ladder.
+Port of ``convex_mpc_tpu/mpc/admm.py``:
 
-The JAX ``lax.while_loop`` / ``lax.cond`` predicates are batch-global, so
-here they are host reads: whether to polish and whether to refactor/continue
-are read once per chunk, and the ladder's round condition once per round.
-The dense-``QpData`` input, the snap-first compaction path and ``debug``
-printing are not ported and raise.
+- ``solve_adaptive`` on its production branch (``StructuredQp`` input,
+  ``snap_first=False``): Ruiz equilibration, the KKT inverse by
+  ``spd_inverse``, 25-iteration chunks of the structured ADMM kernel,
+  per-scenario residual / stall / small-force accepts, the bounded rho
+  descent with rescue and gate steps, refactor-on-demand, and the certified
+  active-set polish ladder. The JAX ``lax.while_loop`` / ``lax.cond``
+  predicates are batch-global, so here they are host reads: whether to
+  polish and whether to refactor/continue are read once per chunk, and the
+  ladder's round condition once per round. The dense-``QpData`` input, the
+  snap-first compaction path and ``debug`` printing are not ported and
+  raise;
+- the legacy fixed-segment ``solve`` / ``solve_batch`` on a dense
+  ``QpData``: Ruiz scaling, ``SEGMENTS`` equal iteration segments with a
+  Cholesky refactorization and a per-scenario rho update between them, the
+  iterations by the dense ADMM kernel (``kernels.admm_iterations``).
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ import numpy as np
 import torch
 
 from convex_mpc_tpu_torch._device import const
-from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
 from convex_mpc_tpu_torch.mpc import kernels
+from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
+from convex_mpc_tpu_torch.mpc.qp import QpData
 from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
 
@@ -296,7 +302,7 @@ def kkt_setup(qp: StructuredQp, sigma: float, eq_scale: float, scaling_iters: in
     s = ruiz_equilibrate_structured(qp.p_dense, qp.q, qp.C, box_raw, qp.l, qp.u,
                                     iters=scaling_iters)
     is_eq = (qp.u - qp.l) < 1e-9
-    w_vec = torch.where(is_eq, eq_scale, 1.0).to(dtype)
+    w_vec = torch.where(is_eq, EQ_SCALE, 1.0).to(dtype)
     w_fr, w_box = w_vec[:, :m_fr], w_vec[:, m_fr:]
     P_mat = s.p_dense + sigma * torch.eye(nz, dtype=dtype, device=dev)
     K_blocks = torch.einsum("bnfr,bnf,bnfs->bnrs", s.C, w_fr.reshape(B, nb, 4), s.C)
@@ -518,3 +524,236 @@ def solve_adaptive(
         x=x_out, y=y_out, prim_res=rp, dual_res=rd, iters=iters,
         state=AdmmState(x=x_out, z=z_out, y=y_out, rho=rho),
     )
+
+
+# ---------------------------------------------------------------------------
+# Legacy fixed-segment solver (dense QpData)
+# ---------------------------------------------------------------------------
+# the JAX solve's defaults that no caller of the port changes
+SIGMA = 1e-6
+ALPHA = 1.6
+EQ_SCALE = 1e3  # rho weight of equality rows
+EPS_EQ_ABS = 3e-4  # unscaled criterion: absolute primal tolerance on equality rows
+EPS_DUAL_ABS = 4e-5  # unscaled criterion: absolute dual tolerance
+CHECK_EVERY = 10
+SEGMENTS = 4
+SCALING_ITERS = 10
+
+class ScaledQp(NamedTuple):
+    """Ruiz-equilibrated dense QP (batched)."""
+
+    p_diag: torch.Tensor  # (B, nz)
+    q: torch.Tensor  # (B, nz)
+    A: torch.Tensor  # (B, m, nz)
+    l: torch.Tensor  # (B, m)
+    u: torch.Tensor  # (B, m)
+    d: torch.Tensor  # (B, nz) variable scaling:   x = d * x_hat
+    e: torch.Tensor  # (B, m) constraint scaling:  z = z_hat / e,  y = e * y_hat / c
+    c: torch.Tensor  # (B,) cost scaling
+    p_dense: torch.Tensor | None = None
+
+
+def init_state(qp: QpData, rho: float = 0.1) -> AdmmState:
+    """Cold start of the shape of ``qp`` (batched or not)."""
+    z = torch.zeros_like(qp.l)
+    return AdmmState(x=torch.zeros_like(qp.q), z=z, y=torch.zeros_like(z),
+                     rho=torch.full(qp.q.shape[:-1], rho, dtype=qp.q.dtype, device=qp.q.device))
+
+
+def _px(p_diag, p_dense, x):
+    """P @ x for diagonal or dense P (batched)."""
+    return p_diag * x if p_dense is None else _bmv(p_dense, x)
+
+
+def _amax(x):
+    return torch.amax(torch.abs(x), dim=-1)
+
+
+def ruiz_equilibrate(qp: QpData, iters: int = 10) -> ScaledQp:
+    """Modified Ruiz equilibration of [P A'; A 0] + OSQP cost normalization,
+    per scenario: P_s = c D P D, q_s = c D q, A_s = E A D, l_s = E l, u_s = E u."""
+    dense = qp.p_dense is not None
+    p = qp.p_dense if dense else qp.p_diag
+    A, q = qp.A, qp.q
+    B, nz = q.shape
+    dtype, dev = q.dtype, q.device
+    d = torch.ones((B, nz), dtype=dtype, device=dev)
+    e = torch.ones_like(qp.l)
+    c = torch.ones((B,), dtype=dtype, device=dev)
+
+    def col_norms_P(p):
+        return torch.amax(torch.abs(p), dim=-2) if dense else torch.abs(p)
+
+    def inv_sqrt_clip(v):
+        return torch.clamp(1.0 / torch.sqrt(torch.clamp(v, min=1e-12)), 1e-6, 1e6)
+
+    for _ in range(iters):
+        dd = inv_sqrt_clip(torch.maximum(torch.amax(torch.abs(A), dim=-2), col_norms_P(p)))
+        ee = inv_sqrt_clip(torch.amax(torch.abs(A * dd[:, None, :]), dim=-1))
+        A = ee[:, :, None] * (A * dd[:, None, :])
+        p = (dd[:, :, None] * p * dd[:, None, :]) if dense else (dd * dd * p)
+        q = dd * q
+        gamma = 1.0 / torch.clamp(
+            torch.maximum(torch.mean(col_norms_P(p), dim=-1), _amax(q)), min=1e-12)
+        gamma = torch.clamp(gamma, 1e-6, 1e6)
+        p = gamma[:, None, None] * p if dense else gamma[:, None] * p
+        q = gamma[:, None] * q
+        d, e, c = d * dd, e * ee, c * gamma
+    l_s, u_s = qp.l * _isfinite_or(qp.l, e), qp.u * _isfinite_or(qp.u, e)
+    if dense:
+        return ScaledQp(p_diag=torch.diagonal(p, dim1=-2, dim2=-1), q=q, A=A, l=l_s, u=u_s,
+                        d=d, e=e, c=c, p_dense=p)
+    return ScaledQp(p_diag=p, q=q, A=A, l=l_s, u=u_s, d=d, e=e, c=c)
+
+
+def _unscale(s: ScaledQp, x_hat, z_hat, y_hat):
+    return s.d * x_hat, z_hat / s.e, s.e * y_hat / s.c[:, None]
+
+
+def _raw_residuals(qp: QpData, s: ScaledQp, x_hat, z_hat, y_hat):
+    """Unscaled max-abs primal/dual residuals (for reporting)."""
+    x, z, y = _unscale(s, x_hat, z_hat, y_hat)
+    rp = _amax(_bmv(qp.A, x) - z)
+    rd = _amax(_px(qp.p_diag, qp.p_dense, x) + qp.q + torch.einsum("bmn,bm->bn", qp.A, y))
+    return rp, rd
+
+
+def _residuals(qp, s, is_eq, x_hat, z_hat, y_hat, eps_abs, eps_rel, scaled: bool):
+    """The OSQP scaled-space criterion (``scaled``, the condensed form) or the
+    unscaled row-type-aware one; residuals over tolerances, <= 1 means met."""
+    if not scaled:
+        return _unscaled_residuals(qp, s, is_eq, x_hat, z_hat, y_hat, eps_abs, eps_rel)
+    ax = _bmv(s.A, x_hat)
+    aty = torch.einsum("bmn,bm->bn", s.A, y_hat)
+    px = _px(s.p_diag, s.p_dense, x_hat)
+    ep = eps_abs + eps_rel * torch.maximum(_amax(ax), _amax(z_hat))
+    ed = eps_abs + eps_rel * torch.maximum(_amax(px), torch.maximum(_amax(aty), _amax(s.q)))
+    return _amax(ax - z_hat) / ep, _amax(px + s.q + aty) / ed
+
+
+def _unscaled_residuals(qp, s, is_eq, x_hat, z_hat, y_hat, eps_abs, eps_rel):
+    """Row-type-aware criterion on the unscaled problem: an absolute primal
+    tolerance on equality rows, OSQP's on inequality rows, an absolute dual
+    tolerance."""
+    x, z, y = _unscale(s, x_hat, z_hat, y_hat)
+    ax = _bmv(qp.A, x)
+    aty = torch.einsum("bmn,bm->bn", qp.A, y)
+    px = _px(qp.p_diag, qp.p_dense, x)
+    r = torch.abs(ax - z)
+    rp_eq = torch.amax(torch.where(is_eq, r, 0.0), dim=-1)
+    rp_in = torch.amax(torch.where(is_eq, 0.0, r), dim=-1)
+    ep_in = eps_abs + eps_rel * torch.maximum(_amax(ax), _amax(z))
+    rd = _amax(px + qp.q + aty)
+    return torch.maximum(rp_eq / EPS_EQ_ABS, rp_in / ep_in), rd / EPS_DUAL_ABS
+
+
+def _segment_inverse(M):
+    """Cholesky inverse of each SPD matrix, NaN where the factorization fails."""
+    L, info = torch.linalg.cholesky_ex(M)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand_as(M)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    Minv = torch.matmul(Linv.transpose(-1, -2), Linv)
+    return torch.where((info != 0)[:, None, None], float("nan"), Minv)
+
+
+def _solve_impl(
+    qp: QpData,
+    state: AdmmState,
+    eps_abs: float = 1e-4,
+    eps_rel: float = 1e-4,
+    max_iter: int = 200,
+    adaptive_rho: bool = True,
+    scaled_termination: bool = False,
+    box_tail: int = 0,
+) -> AdmmSolution:
+    """The fixed-segment solve of a batch (every leaf of ``qp``/``state``
+    has a leading batch axis).
+
+    ``max_iter`` is split into ``SEGMENTS`` equal segments; each scenario's
+    rho adapts (``adaptive_rho``), and its KKT matrix is refactorized,
+    between segments. The iterations run in kernel launches that end at every
+    ``CHECK_EVERY``-th global iteration and at segment ends; at a check point
+    the termination criterion is evaluated (``scaled_termination``: OSQP's in
+    the scaled space, else the unscaled row-type-aware one), and ``iters``
+    reports the first check point at which it held (``max_iter`` if none).
+    ``box_tail`` declares that the last ``box_tail`` rows of A are an
+    identity block (the condensed QP's box rows): the KKT matrix then takes
+    their Gram as a diagonal. The other settings are the JAX ``solve``
+    defaults, kept as module constants.
+    """
+    B, nz = qp.q.shape
+    m = qp.l.shape[-1]
+    dtype, dev = qp.q.dtype, qp.q.device
+    s = ruiz_equilibrate(qp, SCALING_ITERS)
+    is_eq = (qp.u - qp.l) < 1e-9
+
+    # the warm start in the scaled space
+    x = state.x / s.d
+    z = torch.clamp(state.z * s.e, s.l, s.u)
+    y = s.c[:, None] * state.y / s.e
+    rho = torch.clamp(state.rho, 1e-6, 1e6).expand(B)
+
+    eye = torch.eye(nz, dtype=dtype, device=dev)
+    w_vec = torch.where(is_eq, EQ_SCALE, 1.0).to(dtype)
+    if s.p_dense is None:
+        P_mat = torch.diag_embed(s.p_diag + SIGMA)
+    else:
+        P_mat = s.p_dense + SIGMA * eye
+    # M(rho) = P + sigma I + rho K: K = A' diag(w) A is hoisted out of the segments
+    if box_tail:
+        m_fr = m - box_tail
+        A_fr = s.A[:, :m_fr]
+        box_diag = torch.diagonal(s.A[:, m_fr:], dim1=-2, dim2=-1)
+        K = torch.matmul(A_fr.transpose(1, 2), A_fr * w_vec[:, :m_fr, None])
+        K_box = w_vec[:, m_fr:] * box_diag * box_diag
+    else:
+        K = torch.matmul(s.A.transpose(1, 2), s.A * w_vec[:, :, None])
+        K_box = None
+
+    def residuals(x, z, y):
+        return _residuals(qp, s, is_eq, x, z, y, eps_abs, eps_rel, scaled_termination)
+
+    conv_iter = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    per_seg = max_iter // SEGMENTS
+    for seg in range(SEGMENTS):
+        M = P_mat + rho[:, None, None] * K
+        if K_box is not None:
+            M = M + torch.diag_embed(rho[:, None] * K_box)
+        Minv = _segment_inverse(M)
+        rho_vec = rho[:, None] * w_vec
+        done = 0
+        while done < per_seg:
+            it0 = seg * per_seg + done
+            k = min(CHECK_EVERY - it0 % CHECK_EVERY, per_seg - done)
+            x, z, y = kernels.admm_iterations(s.A, Minv, s.q, s.l, s.u, rho_vec, x, z, y,
+                                              iters=k, sigma=SIGMA, alpha=ALPHA)
+            done += k
+            if (it0 + k) % CHECK_EVERY == 0:
+                pr, dr = residuals(x, z, y)
+                newly = (pr <= 1.0) & (dr <= 1.0) & (conv_iter < 0)
+                conv_iter = torch.where(newly, it0 + k, conv_iter).to(torch.int32)
+        if adaptive_rho:
+            pr, dr = residuals(x, z, y)
+            ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
+            rho = torch.clamp(rho * torch.clamp(ratio, 0.1, 10.0), 1e-6, 1e6)
+
+    rp, rd = _raw_residuals(qp, s, x, z, y)
+    x_out, z_out, y_out = _unscale(s, x, z, y)
+    iters = torch.where(conv_iter < 0, max_iter, conv_iter).to(torch.int32)
+    return AdmmSolution(x=x_out, y=y_out, prim_res=rp, dual_res=rd, iters=iters,
+                        state=AdmmState(x=x_out, z=z_out, y=y_out, rho=rho))
+
+
+def solve_batch(qp: QpData, state: AdmmState, **kwargs) -> AdmmSolution:
+    """Batched solve: every leaf of qp/state has a leading batch axis
+    (keyword arguments as :func:`_solve_impl`)."""
+    return _solve_impl(qp, state, **kwargs)
+
+
+def solve(qp: QpData, state: AdmmState, **kwargs) -> AdmmSolution:
+    """The fixed-segment solve of ONE QP: a B = 1 wrapper over :func:`_solve_impl`."""
+    b1 = lambda x: None if x is None else x[None]  # noqa: E731
+    sol = _solve_impl(QpData(*(b1(v) for v in qp)), AdmmState(*(b1(v) for v in state)),
+                      **kwargs)
+    sq = lambda x: x[0]  # noqa: E731
+    return AdmmSolution(*(sq(v) for v in sol[:5]), state=AdmmState(*(sq(v) for v in sol.state)))

@@ -1,14 +1,24 @@
-"""The structured ADMM chunk: the hand-written CUDA kernel and its plain version.
+"""The ADMM iteration kernels: the hand-written CUDA kernels and their plain versions.
 
-Replaces ``convex_mpc_tpu/mpc/kernels.py::admm_iterations_structured`` (a
-Pallas TPU kernel). The CUDA kernel is ``csrc/admm_structured.cu`` (one
-block per scenario, Minv and the vectors resident in shared memory for the
-whole chunk; design and bound in its header). The plain version is the JAX
-twin ``admm_iterations_structured_xla`` transcribed: the same unrolled block
-sums and the same binary-tree fold, each product and sum a separate eager
-op, so the kernel (compiled without multiply-add contraction) can agree
-with it bit for bit on the card. The wrapper takes the plain version for
-CPU tensors only; a CUDA tensor launches the kernel or raises.
+Two kernels, each replacing a Pallas TPU kernel of
+``convex_mpc_tpu/mpc/kernels.py``:
+
+- :func:`admm_iterations_structured` — the structured chunk of the
+  production ``admm.solve_adaptive``. The CUDA kernel is
+  ``csrc/admm_structured.cu`` (one block per scenario, Minv and the vectors
+  resident in shared memory for the whole chunk; design and bound in its
+  header). The plain version is the JAX twin
+  ``admm_iterations_structured_xla`` transcribed: the same unrolled block
+  sums and the same binary-tree fold, each product and sum a separate eager
+  op, so the kernel (compiled without multiply-add contraction) can agree
+  with it bit for bit on the card;
+- :func:`admm_iterations` — the dense-A iterations of the legacy
+  fixed-segment ``admm.solve``. The CUDA kernel is ``csrc/admm_dense.cu``
+  (one block per scenario, Minv in shared memory, A streamed each
+  iteration); the plain version is the arithmetic of the TPU ``_kernel``.
+
+Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -128,3 +138,72 @@ def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
 
 
 admm_iterations_structured.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dense-A iterations (legacy fixed-segment admm.solve)
+# ---------------------------------------------------------------------------
+def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
+                          sigma: float = 1e-6, alpha: float = 1.6):
+    """``iters`` over-relaxed ADMM steps against a dense A (B, m, n), plain
+    PyTorch. ``y / rho`` is true division, and 0 on rows with rho = 0."""
+    pos = rho > 0
+    rho_safe = torch.where(pos, rho, 1.0)
+    x, z, y = x0, z0, y0
+    for _ in range(iters):
+        t = rho * z - y
+        rhs = sigma * x - q + torch.einsum("bmn,bm->bn", A, t)
+        xt = torch.einsum("bnk,bk->bn", Minv, rhs)
+        axt = torch.einsum("bmn,bn->bm", A, xt)
+        x_new = alpha * xt + (1.0 - alpha) * x
+        ax_rel = alpha * axt + (1.0 - alpha) * z
+        z_new = torch.clamp(ax_rel + torch.where(pos, y / rho_safe, 0.0), l, u)
+        y = y + rho * (ax_rel - z_new)
+        x, z = x_new, z_new
+    return x, z, y
+
+
+def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
+    cuda_build.require_cuda("admm_iterations", A, Minv, q, l, u, rho, x0, z0, y0)
+    B, m, n = A.shape
+    xo, zo, yo = torch.empty_like(x0), torch.empty_like(z0), torch.empty_like(y0)
+    vec_bytes = (4 * n + 6 * m) * 4
+    minv_in_smem = int(vec_bytes + n * n * 4 <= _SMEM_LIMIT - 1024)
+    if vec_bytes > _SMEM_LIMIT - 1024:
+        raise ValueError(f"admm_iterations kernel: m = {m}, n = {n} exceed shared memory")
+    fn = cuda_build.load("admm_dense").admm_dense_f32
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
+    err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), minv_in_smem,
+             stream)
+    cuda_build.check(err, "admm_iterations")
+    return xo, zo, yo
+
+
+def admm_iterations(A, Minv, q, l, u, rho, x0, z0, y0, iters: int, sigma: float = 1e-6,
+                    alpha: float = 1.6):
+    """``iters`` dense-A ADMM iterations; returns (x, z, y)."""
+    B, m, n = A.shape
+    args = (A, Minv, q, l, u, rho, x0, z0, y0)
+    shapes = [(B, m, n), (B, n, n), (B, n), (B, m), (B, m), (B, m), (B, n), (B, m), (B, m)]
+    for name, t, s in zip("A Minv q l u rho x0 z0 y0".split(), args, shapes):
+        if tuple(t.shape) != s:
+            raise ValueError(f"admm_iterations: {name} has shape {tuple(t.shape)}, expected {s}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"admm_iterations: {name} must be f32, got {t.dtype}")
+        if t.device != A.device:
+            raise ValueError("admm_iterations: all operands on one device")
+    if A.device.type == "cpu":
+        return admm_iterations_plain(*args, iters=iters, sigma=sigma, alpha=alpha)
+    if A.device.type != "cuda":
+        raise ValueError(f"admm_iterations runs on CPU or CUDA tensors, got {A.device}")
+    out = _launch_dense(*[t.contiguous() for t in args], iters, sigma, alpha)
+    admm_iterations.launches += 1
+    return out
+
+
+admm_iterations.launches = 0

@@ -1,13 +1,15 @@
 """Closed-loop simulation engine: MPC at ~48 Hz, leg control + physics at 1 kHz.
 
-Port of ``convex_mpc_tpu/sim/engine.py`` (production path). One
-``mpc_cycle_batch`` = per-scenario update (command lookup, observation,
-reference generation, condensed QP assembly) + one batch-global adaptive
-QP solve + ``steps_per_mpc`` 1 kHz ticks of leg control and plant stepping,
-with every state NamedTuple batched on its leading axis. The JAX ``vmap``
-becomes that batch axis and the tick ``lax.scan`` a Python loop; the logs
-keep the ``vmap``-of-``scan`` layout (``CycleLog.ticks.*`` is
-``(B, steps_per_mpc, ...)``).
+Port of ``convex_mpc_tpu/sim/engine.py``. One ``mpc_cycle_batch`` =
+per-scenario update (command lookup, observation, reference generation,
+condensed QP assembly) + one batch-global adaptive QP solve +
+``steps_per_mpc`` 1 kHz ticks of leg control and plant stepping, with every
+state NamedTuple batched on its leading axis. The JAX ``vmap`` becomes that
+batch axis and the tick ``lax.scan`` a Python loop (or, with
+``use_fused_ticks``, one fused window: ``sim/tick_fused.py``); the logs keep
+the ``vmap``-of-``scan`` layout (``CycleLog.ticks.*`` is
+``(B, steps_per_mpc, ...)``). ``mpc_cycle_fixed`` is the same period on the
+legacy fixed-segment solver.
 
 The CUDA kernels run when the tensors are on a CUDA device and their plain
 versions when they are on the CPU; there is no other switch.
@@ -31,6 +33,7 @@ from convex_mpc_tpu_torch.models.go2_params import DEFAULT_PARAMS
 from convex_mpc_tpu_torch.mpc import admm, condensed
 from convex_mpc_tpu_torch.ops.rotations import quat_to_rpy, yaw_unwrap_step
 from convex_mpc_tpu_torch.sim import physics as P
+from convex_mpc_tpu_torch.sim import tick_fused
 from convex_mpc_tpu_torch.utils.interop import tree_leaves, tree_map, tree_unflatten
 
 
@@ -225,11 +228,18 @@ def cycle_update(dyn, gait, sched, state, qd, n, mpc_dt, r_value, mu_mpc, fz_min
 
 def cycle_apply(dyn, gait, contact, state, sol, traj_b, refgen_b, cmd_b, yc_b, yp_b,
                 solver_iters, steps_per_mpc=20, tau_max=45.0, sim_dt=1e-3,
-                vel_filter_hz=30.0):
+                vel_filter_hz=30.0, use_fused_ticks=None):
     """Batched "apply" stage: 1 kHz ticks from the solved forces + next-cycle
-    state assembly with the rho warm-carry."""
+    state assembly with the rho warm-carry.
+
+    ``use_fused_ticks``: run the window as one fused launch
+    (``tick_fused.run_ticks_fused``) instead of the tick loop; the same
+    semantics at f32 reassociation level. ``None`` means off, the JAX
+    package's default, which keeps it off pending closed-loop certification.
+    """
     u0_b = sol.x[:, 0:12].reshape(-1, 4, 3)
-    (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = _run_ticks(
+    ticks_fn = tick_fused.run_ticks_fused if use_fused_ticks else _run_ticks
+    (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = ticks_fn(
         dyn, gait, contact, cmd_b, traj_b, u0_b, state.plant, state.leg, yc_b, yp_b,
         state.vel_filt, state.t, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
     )
@@ -283,14 +293,16 @@ def mpc_cycle_batch(
     return_polished: bool = True,
     brake_accel: float = 0.0,
     brake_alpha: float = 0.0,
+    use_fused_ticks: bool | None = None,
     profile: dict | None = None,
 ) -> tuple[EngineState, CycleLog]:
     """One MPC period for a scenario batch with the batch-global adaptive solver.
 
     ``gait``/``contact``/``sched``/``state`` leaves carry a leading batch
-    axis. ``profile``, when a dict, accumulates the seconds of the update,
-    solve and apply stages under those keys (each stage then ends in a
-    device synchronization).
+    axis. ``use_fused_ticks`` as in :func:`cycle_apply`. ``profile``, when a
+    dict, accumulates the seconds of the update, solve and apply stages under
+    those keys (each stage then ends in a device synchronization; the apply
+    stage covers the fused window too).
     """
     dev = state.plant.q.device
     qd = const(("q_diag", tuple(float(v) for v in q_diag)), dev,
@@ -310,9 +322,69 @@ def mpc_cycle_batch(
     out = cycle_apply(
         dyn, gait, contact, state, sol, traj_b, refgen_b, cmd_b, yc_b, yp_b,
         solver_iters, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
+        use_fused_ticks=use_fused_ticks,
     )
     _stage_mark(profile, "apply", t_mark, dev)
     return out
+
+
+def mpc_cycle_fixed(
+    dyn: D.Go2Dyn,
+    gait: G.GaitParams,
+    contact: P.ContactParams,
+    sched: CommandSchedule,
+    state: EngineState,
+    n: int = 16,
+    steps_per_mpc: int = 20,
+    solver_iters: int = 200,
+    tau_max: float = 45.0,
+    mpc_dt: float = (1.0 / 3.0) / 16,
+    sim_dt: float = 1e-3,
+    q_diag=(1, 1, 50, 10, 20, 1, 2, 2, 1, 1, 1, 1),
+    r_value: float = 1e-5,
+    mu_mpc: float = 0.8,
+    fz_min: float = 10.0,
+    vel_filter_hz: float = 30.0,
+    formulation: str = "condensed",
+) -> tuple[EngineState, CycleLog]:
+    """One MPC period for a scenario batch on the LEGACY fixed-segment solver
+    (``admm.solve_batch`` on the dense condensed QP, rho reset to 0.1 each
+    cycle, (x, z, y) warm-started).
+
+    Kept as the iteration->throughput reference curve and for solver
+    comparisons; production runs :func:`mpc_cycle_batch`. Inputs carry a
+    leading batch axis, as there. Only the condensed formulation is ported.
+    """
+    if formulation != "condensed":
+        raise NotImplementedError("only the condensed formulation is ported")
+    dev = state.plant.q.device
+    cmd = lookup_command(sched, state.t)
+    obs, yaw_cont, yaw_prev = observe(dyn, state.plant, state.yaw_cont, state.yaw_prev,
+                                      state.vel_filt)
+    traj, refgen = R.generate(state.refgen, gait, obs, cmd, state.t, mpc_dt, n)
+    # solve in the frame of the current COM (the QP is translation-invariant)
+    p0 = traj.x0[:, 0:3]
+    x0_s = torch.cat([torch.zeros_like(p0), traj.x0[:, 3:]], dim=-1)
+    x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] + (-p0[:, None, :]), traj.x_ref[:, :, 3:]], dim=-1)
+    qd = const(("q_diag", tuple(float(v) for v in q_diag)), dev,
+               lambda d: torch.as_tensor(q_diag, dtype=F32, device=d))
+    data, _ = condensed.build_condensed(traj.dyn, x0_s, x_ref_s, traj.contact, qd, r_value,
+                                        mu_mpc, fz_min)
+    # warm (x, z, y), but rho restarts at 0.1 every solve
+    warm = state.solver._replace(rho=torch.full_like(state.solver.rho, 0.1))
+    sol = admm.solve_batch(data, warm, max_iter=solver_iters, scaled_termination=True,
+                           eps_abs=1e-4, eps_rel=1e-4, box_tail=n * 12)
+    u0 = sol.x[:, 0:12].reshape(-1, 4, 3)
+    (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = _run_ticks(
+        dyn, gait, contact, cmd, traj, u0, state.plant, state.leg, yaw_cont, yaw_prev,
+        state.vel_filt, state.t, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
+    )
+    new_state = EngineState(plant=plant, leg=leg_state, refgen=refgen, solver=sol.state,
+                            yaw_cont=yaw_cont, yaw_prev=yaw_prev, u0=u0, t=t,
+                            vel_filt=vel_filt)
+    log = CycleLog(ticks=ticks, solver_iters=sol.iters, prim_res=sol.prim_res,
+                   dual_res=sol.dual_res)
+    return new_state, log
 
 
 def broadcast_batch(tree, batch: int):
@@ -328,13 +400,25 @@ def mpc_cycle(dyn, gait, contact, sched, state, **kwargs):
     return sq(new_b), sq(log_b)
 
 
-def simulate_batched(dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):
-    """``n_cycles`` batched MPC periods; logs stacked as (n_cycles, B, ...)."""
+def _simulate(cycle, dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):
     logs = []
     for _ in range(n_cycles):
-        state, log = mpc_cycle_batch(dyn, gait, contact, sched, state, **cycle_kwargs)
+        state, log = cycle(dyn, gait, contact, sched, state, **cycle_kwargs)
         logs.append(log)
     if not logs:
         return state, None
     stacked = [torch.stack(v, dim=0) for v in zip(*(tree_leaves(lg) for lg in logs))]
     return state, tree_unflatten(logs[0], stacked)
+
+
+def simulate_batched(dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):
+    """``n_cycles`` batched MPC periods; logs stacked as (n_cycles, B, ...)."""
+    return _simulate(mpc_cycle_batch, dyn, gait, contact, sched, state, n_cycles,
+                     **cycle_kwargs)
+
+
+def simulate_fixed(dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):
+    """:func:`simulate_batched` on the legacy fixed-segment solver
+    (:func:`mpc_cycle_fixed`) — solver-comparison use only."""
+    return _simulate(mpc_cycle_fixed, dyn, gait, contact, sched, state, n_cycles,
+                     **cycle_kwargs)

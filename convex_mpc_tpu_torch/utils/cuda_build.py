@@ -28,10 +28,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # per-kernel extra flags: the ADMM chunk pins its arithmetic order, so no
-# multiply-add contraction anywhere in that file
+# multiply-add contraction anywhere in that file. No file takes
+# --use_fast_math: division and sqrtf stay IEEE.
 KERNEL_FLAGS = {
     "spd_inverse": [],
     "admm_structured": ["-fmad=false"],
+    "tick_window": [],
+    "admm_dense": [],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,13 +99,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def require_cuda(what: str, *tensors) -> None:
-    """Raise unless every operand is a contiguous f32 tensor on a CUDA device."""
-    for x in tensors:
+def require_cuda(what: str, *tensors, ints=()) -> None:
+    """Raise unless every operand is a contiguous tensor on a CUDA device:
+    f32 for ``tensors``, int32 for ``ints`` (the masks a kernel takes)."""
+    for x, dtype in [(x, torch.float32) for x in tensors] + [(x, torch.int32) for x in ints]:
         if x.device.type != "cuda":
             raise ValueError(f"{what}: the kernel takes CUDA tensors, got one on {x.device}")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{what}: the kernel takes contiguous f32 tensors")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{what}: the kernel takes contiguous {dtype} tensors, got "
+                             f"{x.dtype}{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
 def check(err: int, what: str) -> None:

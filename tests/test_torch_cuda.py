@@ -9,7 +9,11 @@ configures JAX, so on a machine without JAX run, from the repo root:
 
 Bars as in tests/test_torch_mpc.py: spd_inverse within 5e-5 x max|plain|
 with |A out - I| < 1e-4 on a random SPD batch; the ADMM chunk within
-atol 2e-6 / rtol 1e-5 of its plain version.
+atol 2e-6 / rtol 1e-5 of its plain version. As in tests/test_torch_tick_fused.py
+and tests/test_torch_fixed.py: the fused tick window within 5e-3 per channel
+over 20 ticks and 2e-4 over one tick, masks equal (the tick battery comes
+from ``chip_smoke.tick_battery``); the dense ADMM iterations within rtol and
+atol 2e-4 (``chip_smoke.dense_problem``).
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import structured_problem  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    dense_problem, structured_problem, tick_battery, window_misses)
 
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
+from convex_mpc_tpu_torch.sim import tick_fused as TTF  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -63,3 +69,29 @@ def test_admm_kernel_matches_plain(iters):
     ref = TK.admm_iterations_structured_plain(*args, iters=iters)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B, steps, rel", [(5, 20, 5e-3), (64, 20, 5e-3), (64, 1, 2e-4)])
+def test_tick_window_kernel_matches_plain(B, steps, rel):
+    _need_cuda()
+    args = tick_battery(B, seed=3, dev=torch.device("cuda"))
+    before = TTF.run_ticks_fused.launches
+    out = TTF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
+    torch.cuda.synchronize()
+    assert TTF.run_ticks_fused.launches == before + 1
+    ref = TTF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)
+    miss, errs, _ = window_misses(out, ref, rel)
+    assert not miss.any(), errs
+
+
+@pytest.mark.parametrize("iters", [1, 25])
+def test_admm_dense_kernel_matches_plain(iters):
+    _need_cuda()
+    args = dense_problem(8, 64, seed=11, dev=torch.device("cuda"))
+    before = TK.admm_iterations.launches
+    out = TK.admm_iterations(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches == before + 1
+    ref = TK.admm_iterations_plain(*args, iters=iters)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
