@@ -9,16 +9,20 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, with CUDA-event times of the kernel, the plain version and a
-   yardstick the port never calls: ``spd_inverse`` at B = 512, n = 192 on a
-   random SPD batch and on the solver's KKT matrix at attractor-region rho
-   (1e-4); the structured ADMM chunk at B = 512, nb = 64 for 25 and 150
+   yardstick the port never calls: ``spd_inverse`` at B = 512 on random SPD
+   batches at n = 192, 288 and 384 (horizons 16, 24, 32; one matrix of each
+   made non-SPD must come back all NaN) and on the solver's KKT matrix at
+   attractor-region rho (1e-4); the structured ADMM chunk at B = 512,
+   nb = 64, 96 and 128, bitwise equal to its plain version after 25 and 150
    iterations; the fused tick window at B = 512 for 20 ticks (5e-3 per
    channel) and one tick (2e-4), and a ragged B = 5 (at most ``MAX_FLIPS``
    scenarios that took another contact branch within ``FLIP_MARGIN`` of its
    threshold are excused from the bar), with the eager
    ``engine._run_ticks`` window as its yardstick; the dense ADMM
    iterations at B = 512, A (448, 192), for 25 and 50 iterations (rtol and
-   atol 2e-4);
+   atol 2e-4) in clusters of 8 CTAs. Before them, each kernel's
+   ``ptxas -v`` lines; the two cluster kernels must show no stack frame and
+   no spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
    DEFAULT_CONFIG)`` at B = 512, horizon 16 from the start state of the JAX
    package's ``bench.py``; 16 settle cycles, then one timed 16-cycle window,
@@ -30,7 +34,12 @@ Phases (any failure exits non-zero and prints no result line):
 5. the legacy path: ``mpc_cycle_fixed`` at B = 512 with
    ``solver_iters=150`` (``bench.py``'s curve point) for a short window, its
    counters set to 0 just before it; then one B = 8 cycle on the card and on
-   the CPU within 2.0 N.
+   the CPU within 2.0 N;
+6. horizons 24 and 32: ``mpc_cycle_batch`` at B = 512 with
+   ``mpc_dt`` = gait period / horizon, 4 settle cycles and a 4-cycle
+   window with the counters set to 0 just before it (both solve kernels
+   must launch), then one B = 8 cycle on the card and on the CPU within
+   2.0 N.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -59,6 +68,9 @@ WINDOW = 16
 B_SMALL = 8
 FIXED_WINDOW = 4
 FIXED_ITERS = 150
+HORIZONS = (24, 32)
+H_SETTLE = 4
+H_WINDOW = 4
 
 # the tick window's comparison may excuse at most MAX_FLIPS scenarios that took
 # another contact branch, each only if it flipped within FLIP_MARGIN (m) of the
@@ -181,27 +193,70 @@ def admm_chunk_bmm(C, box, Minv, q, l, u, rho, x, z, y, iters, sigma=1e-6, alpha
     return x, z, y
 
 
+def spd_batch(B: int, n: int, seed: int, dev) -> torch.Tensor:
+    """A random SPD batch, M M' / n + 3 I, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    M = torch.as_tensor(rng.normal(size=(B, n, n)).astype(np.float32), device=dev)
+    return M @ M.transpose(1, 2) / n + 3.0 * torch.eye(n, device=dev)
+
+
+def spd_times(A: torch.Tensor) -> tuple:
+    """(kernel, plain, library, bound ms, bound_by) of spd_inverse on A."""
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
+
+    B, n = A.shape[0], A.shape[1]
+    ms = cuda_ms(lambda: spd_inverse(A))
+    plain_ms = cuda_ms(lambda: spd_inverse_plain(A))
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.cholesky_inverse(L)
+
+    lib_ms = cuda_ms(library)
+    # least work: Cholesky n^3/3 + triangular inverse n^3/3 + symmetric Gram
+    # n^3/3 flops per matrix (LAPACK potrf + potri); bytes: A in, inverse out
+    b_ms, b_by = bound(2 * B * n * n * 4, B * n ** 3)
+    print(f"spd_inverse times B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return ms, plain_ms, lib_ms, b_ms, b_by
+
+
+def check_spd_random(n: int, dev) -> float:
+    """spd_inverse against its plain version on a random SPD batch of size n
+    at B_MAIN, one matrix of it made non-SPD (its output must be all NaN, the
+    others finite). Returns max|kernel - plain| over the SPD matrices."""
+    from convex_mpc_tpu_torch.ops.chol_kernel import MAX_SMEM_N, spd_inverse, spd_inverse_plain
+
+    B, bad = B_MAIN, 5
+    A = spd_batch(B, n, 7, dev)
+    A[bad] -= 4.0 * torch.eye(n, device=dev)
+    out = spd_inverse(A)
+    torch.cuda.synchronize()
+    ref = spd_inverse_plain(A)
+    keep = torch.arange(B, device=dev) != bad
+    nan_ok = bool(torch.isnan(out[bad]).all() and torch.isfinite(out[keep]).all())
+    o, r = out[keep], ref[keep]
+    err = (o - r).abs().max().item()
+    scale = r.abs().max().item()
+    resid = (A[keep] @ o - torch.eye(n, device=dev)).abs().max().item()
+    where = "shared" if n <= MAX_SMEM_N else "device"
+    print(f"spd_inverse random SPD B={B} n={n} (working set in {where} memory): "
+          f"max|k-plain|={err:.3e} (bar {5e-5 * scale:.3e}) |A out - I|={resid:.3e} (bar 1e-4) "
+          f"bitwise={torch.equal(o, r)}; non-SPD matrix all NaN, the others finite: {nan_ok}")
+    if not (err <= 5e-5 * scale and resid < 1e-4 and nan_ok):
+        fail(f"spd_inverse disagrees with its plain version on the random batch at n={n}")
+    return err
+
+
 def check_spd_inverse(kkt: torch.Tensor) -> dict:
     from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 
     dev = kkt.device
-    B, n = B_MAIN, 192
-    rng = np.random.default_rng(7)
-    M = torch.as_tensor(rng.normal(size=(B, n, n)).astype(np.float32), device=dev)
-    A = M @ M.transpose(1, 2) / n + 3.0 * torch.eye(n, device=dev)
-    eye = torch.eye(n, device=dev)
-
-    out = spd_inverse(A)
-    torch.cuda.synchronize()
-    ref = spd_inverse_plain(A)
-    err = (out - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    resid = (A @ out - eye).abs().max().item()
-    bitwise = torch.equal(out, ref)
-    print(f"spd_inverse random SPD B={B} n={n}: max|k-plain|={err:.3e} "
-          f"(bar {5e-5 * scale:.3e}) |A out - I|={resid:.3e} (bar 1e-4) bitwise={bitwise}")
-    if not (err <= 5e-5 * scale and resid < 1e-4):
-        fail("spd_inverse disagrees with its plain version on the random SPD batch")
+    n = 192
+    # horizons 24 and 32 (n = 288, 384): the device-memory working set
+    err = max(check_spd_random(nn, dev) for nn in (192, 288, 384))
+    for nn in (288, 384):
+        spd_times(spd_batch(B_MAIN, nn, 7, dev))
 
     # the solver's KKT at attractor-region rho: cond ~1e4, so the bar is
     # relative to the f64 inverse (within twice the plain version's error)
@@ -218,7 +273,7 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
     r_plain = (K64 @ ref_k.double() - eye64).abs().max().item()
     kerr = (out_k - ref_k).abs().max().item()
     pscale = ref_k.abs().max().item()
-    print(f"spd_inverse KKT rho=1e-4 B={B}: max|k-plain|={kerr:.3e} (= {kerr / kscale:.2e} x scale) "
+    print(f"spd_inverse KKT rho=1e-4 B={B_MAIN}: max|k-plain|={kerr:.3e} (= {kerr / kscale:.2e} x scale) "
           f"|k-f64|={e_kernel / kscale:.2e} x scale vs plain {e_plain / kscale:.2e}; "
           f"|A out - I| kernel {r_kernel:.3e} plain {r_plain:.3e}; "
           f"bitwise={torch.equal(out_k, ref_k)}")
@@ -231,19 +286,8 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
             and r_kernel <= 2 * r_plain + 1e-5):
         fail("spd_inverse on the attractor-rho KKT is less accurate than twice the plain version")
 
-    ms = cuda_ms(lambda: spd_inverse(A))
-    plain_ms = cuda_ms(lambda: spd_inverse_plain(A))
-
-    def library():
-        L, _ = torch.linalg.cholesky_ex(A)
-        return torch.cholesky_inverse(L)
-
-    lib_ms = cuda_ms(library)
-    # least work: Cholesky n^3/3 + triangular inverse n^3/3 + symmetric Gram
-    # n^3/3 flops per matrix (LAPACK potrf + potri); bytes: A in, inverse out
-    b_ms, b_by = bound(2 * B * n * n * 4, B * n ** 3)
-    print(f"spd_inverse times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the main path's size (horizon 16) for the kernel table
+    ms, plain_ms, lib_ms, b_ms, b_by = spd_times(spd_batch(B_MAIN, n, 7, dev))
     return dict(name="spd_inverse", route="cuda",
                 source="convex_mpc_tpu_torch/csrc/spd_inverse.cu",
                 replaces="convex_mpc_tpu/ops/chol_kernel.py:227",
@@ -252,42 +296,49 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
 
 
 def check_admm_chunk(dev) -> dict:
+    """The structured chunk at B_MAIN for nb = 64, 96, 128 (horizons 16, 24,
+    32): bitwise equal to its plain version after 25 and 150 iterations, and
+    its times per 25 iterations. Returns the kernel-table row of nb = 64."""
     from convex_mpc_tpu_torch.mpc.kernels import (
-        admm_iterations_structured, admm_iterations_structured_plain)
+        admm_iterations_structured, admm_iterations_structured_plain, structured_cluster_shape)
 
-    B, nb = B_MAIN, 64
-    args = structured_problem(B, nb, seed=11, dev=dev)
-    worst = 0.0
-    for iters in (25, 150):
-        out = admm_iterations_structured(*args, iters=iters)
-        torch.cuda.synchronize()
-        ref = admm_iterations_structured_plain(*args, iters=iters)
-        errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
-        bitwise = all(torch.equal(a, b) for a, b in zip(out, ref))
-        ok = all(torch.allclose(a, b, atol=2e-6, rtol=1e-5) for a, b in zip(out, ref))
-        print(f"admm_iterations_structured B={B} nb={nb} iters={iters}: max|k-plain| "
-              f"x/z/y = {errs} (bar atol 2e-6 rtol 1e-5) bitwise={bitwise}")
-        if not (ok and all(torch.isfinite(a).all() for a in out)):
-            fail(f"admm_iterations_structured disagrees with its plain version at {iters} iterations")
-        worst = max(worst, *errs)
+    B, worst, row = B_MAIN, 0.0, None
+    for nb in (64, 96, 128):
+        args = structured_problem(B, nb, seed=11, dev=dev)
+        csize, resident = structured_cluster_shape(nb)
+        print(f"admm_iterations_structured nb={nb}: clusters of {csize} CTAs, {resident} "
+              f"resident at once, {B / resident:.2f} waves at B={B}")
+        for iters in (25, 150):
+            out = admm_iterations_structured(*args, iters=iters)
+            torch.cuda.synchronize()
+            ref = admm_iterations_structured_plain(*args, iters=iters)
+            errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
+            bitwise = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"admm_iterations_structured B={B} nb={nb} iters={iters}: max|k-plain| "
+                  f"x/z/y = {errs} bitwise={bitwise}")
+            if not (bitwise and all(torch.isfinite(a).all() for a in out)):
+                fail(f"admm_iterations_structured is not bitwise equal to its plain version "
+                     f"(nb={nb}, {iters} iterations)")
+            worst = max(worst, *errs)
 
-    iters = 25  # check_every on the main path
-    ms = cuda_ms(lambda: admm_iterations_structured(*args, iters=iters))
-    plain_ms = cuda_ms(lambda: admm_iterations_structured_plain(*args, iters=iters), reps=3)
-    lib_ms = cuda_ms(lambda: admm_chunk_bmm(*args, iters=iters), reps=3)
-    nz, m = 3 * nb, 7 * nb
-    in_bytes = 4 * B * (12 * nb + nz * nz + 3 * nz + 5 * m)
-    out_bytes = 4 * B * (nz + 2 * m)
-    # per iteration: KKT matvec 2 nz^2, A'w 10 nz, Av 6 m_fr + nz, updates ~12 m
-    flops = B * iters * (2 * nz * nz + 10 * nz + 6 * 4 * nb + nz + 12 * m)
-    b_ms, b_by = bound(in_bytes + out_bytes, flops)
-    print(f"admm_iterations_structured times (25 iters): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        iters = 25  # check_every on the main path
+        ms = cuda_ms(lambda: admm_iterations_structured(*args, iters=iters))
+        plain_ms = cuda_ms(lambda: admm_iterations_structured_plain(*args, iters=iters), reps=3)
+        lib_ms = cuda_ms(lambda: admm_chunk_bmm(*args, iters=iters), reps=3)
+        nz, m = 3 * nb, 7 * nb
+        in_bytes = 4 * B * (12 * nb + nz * nz + 3 * nz + 5 * m)
+        out_bytes = 4 * B * (nz + 2 * m)
+        # per iteration: KKT matvec 2 nz^2, A'w 10 nz, Av 6 m_fr + nz, updates ~12 m
+        flops = B * iters * (2 * nz * nz + 10 * nz + 6 * 4 * nb + nz + 12 * m)
+        b_ms, b_by = bound(in_bytes + out_bytes, flops)
+        print(f"admm_iterations_structured times B={B} nb={nb} (25 iters): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if nb == 64:  # the main path's size (horizon 16) for the kernel table
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del args
     return dict(name="admm_iterations_structured", route="cuda",
                 source="convex_mpc_tpu_torch/csrc/admm_structured.cu",
-                replaces="convex_mpc_tpu/mpc/kernels.py:456",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                replaces="convex_mpc_tpu/mpc/kernels.py:456", max_abs_err=worst, **row)
 
 
 TickTraj = namedtuple("TickTraj", ["pos_des_world", "vel_des_world"])
@@ -538,34 +589,41 @@ def admm_dense_bmm(A, Minv, q, l, u, rho, x, z, y, iters, sigma=1e-6, alpha=1.6)
 
 
 def check_admm_dense(dev) -> dict:
-    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations, admm_iterations_plain
+    """The dense iterations at B_MAIN, A (448, 192), within rtol and atol 2e-4
+    of the plain version after 25 and 50 iterations, and their times."""
+    from convex_mpc_tpu_torch.mpc import kernels as K
 
     B, nb = B_MAIN, 64
     args = dense_problem(B, nb, seed=11, dev=dev)
+    m, n = args[0].shape[1], args[0].shape[2]
+    csize, resident = K.dense_cluster_shape(m, n)
+    if resident < 1:
+        fail(f"admm_iterations: no cluster of {csize} CTAs holds A {(m, n)} on the card")
+    print(f"admm_iterations (dense) A={(m, n)}: clusters of {csize} CTAs, {resident} resident "
+          f"at once, {B / resident:.2f} waves at B={B}")
     worst = 0.0
     for iters in (25, 50):
-        out = admm_iterations(*args, iters=iters)
+        out = K.admm_iterations(*args, iters=iters)
         torch.cuda.synchronize()
-        ref = admm_iterations_plain(*args, iters=iters)
+        ref = K.admm_iterations_plain(*args, iters=iters)
         errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
         ok = all(torch.allclose(a, b, atol=2e-4, rtol=2e-4) for a, b in zip(out, ref))
-        print(f"admm_iterations (dense) B={B} A={tuple(args[0].shape[1:])} iters={iters}: "
-              f"max|k-plain| x/z/y = {errs} (bar atol 2e-4 rtol 2e-4)")
+        print(f"admm_iterations (dense) B={B} A={(m, n)} iters={iters}: max|k-plain| x/z/y = "
+              f"{errs} (bar atol 2e-4 rtol 2e-4)")
         if not (ok and all(torch.isfinite(a).all() for a in out)):
             fail(f"admm_iterations disagrees with its plain version at {iters} iterations")
         worst = max(worst, *errs)
     iters = 25
-    ms = cuda_ms(lambda: admm_iterations(*args, iters=iters))
-    plain_ms = cuda_ms(lambda: admm_iterations_plain(*args, iters=iters), reps=3)
+    ms = cuda_ms(lambda: K.admm_iterations(*args, iters=iters))
+    plain_ms = cuda_ms(lambda: K.admm_iterations_plain(*args, iters=iters), reps=3)
     lib_ms = cuda_ms(lambda: admm_dense_bmm(*args, iters=iters), reps=3)
-    m, n = args[0].shape[1], args[0].shape[2]
     in_bytes = 4 * B * (m * n + n * n + 2 * n + 6 * m)
     out_bytes = 4 * B * (n + 2 * m)
     # per iteration: A't and A xt 2mn each, Minv rhs 2n^2, vector updates ~12m + 6n
     flops = B * iters * (4 * m * n + 2 * n * n + 12 * m + 6 * n)
     b_ms, b_by = bound(in_bytes + out_bytes, flops)
-    print(f"admm_iterations (dense) times (25 iters): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"admm_iterations (dense) times (25 iters): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="admm_iterations", route="cuda",
                 source="convex_mpc_tpu_torch/csrc/admm_dense.cu",
                 replaces="convex_mpc_tpu/mpc/kernels.py:186",
@@ -576,8 +634,9 @@ def check_admm_dense(dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
-def start_batch(B: int, dev):
-    """bench.py's start state: trot 3 Hz duty 0.6, vx = 0.5, x offsets."""
+def start_batch(B: int, dev, n: int = HORIZON):
+    """bench.py's start state: trot 3 Hz duty 0.6, vx = 0.5, x offsets;
+    ``n`` the MPC horizon of the solver state."""
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.models import dynamics as D
     from convex_mpc_tpu_torch.sim import engine as E
@@ -588,7 +647,7 @@ def start_batch(B: int, dev):
     gait_b = E.broadcast_batch(G.make_gait_params(3.0, 0.6, device=dev), B)
     contact_b = E.broadcast_batch(contact, B)
     sched_b = E.broadcast_batch(E.constant_schedule(vx=0.5, device=dev), B)
-    state = E.init_state(dyn, n=HORIZON)._replace(plant=P.init_plant(dyn, contact=contact))
+    state = E.init_state(dyn, n=n)._replace(plant=P.init_plant(dyn, contact=contact))
     state_b = E.broadcast_batch(state, B)
     q = state_b.plant.q.clone()
     q[:, 0] += torch.linspace(-0.02, 0.02, B, device=dev)
@@ -730,6 +789,59 @@ def fixed_path(dev) -> dict:
     return fixed
 
 
+def horizons_path(dev) -> None:
+    """Phase 6: the production cycle at horizons 24 and 32 (nz = 288, 384:
+    ``spd_inverse`` with its device-memory working set, the structured chunk
+    in clusters of 2 and 3 CTAs), mpc_dt = gait period / horizon."""
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
+
+    for n in HORIZONS:
+        kw = engine_kwargs_batched(EngineConfig(mpc=MpcConfig(horizon=n)))
+        dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev, n)
+        args = (dyn, gait_b, contact_b, sched_b)
+        t0 = time.perf_counter()
+        for _ in range(H_SETTLE):
+            state, _ = E.mpc_cycle_batch(*args, state, **kw)
+        torch.cuda.synchronize()
+        print(f"horizon {n} (mpc_dt {kw['mpc_dt']:.6f} s): {H_SETTLE} settle cycles at "
+              f"B={B_MAIN} in {time.perf_counter() - t0:.2f} s")
+        _, res = drive(f"horizon {n} path", E.mpc_cycle_batch, args, state, H_WINDOW, kw,
+                       profile={})
+        if min(res["launches"][k] for k in ("spd_inverse", "admm_iterations_structured")) <= 0:
+            fail(f"horizon {n}: a solve kernel was never launched: {res['launches']}")
+        card_vs_cpu(f"horizon {n} path", E.mpc_cycle_batch, dyn,
+                    (gait_b, contact_b, sched_b, state), 1, kw)
+
+
+def ptxas_report(logs: dict) -> None:
+    """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
+    printed them. Every entry function of the two cluster kernels must report
+    its stack frame, spill nothing and keep no array in local memory (a stack
+    frame)."""
+    import re
+
+    for name, log in logs.items():
+        fn, entries, reported = None, set(), set()
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                entries.add(fn)
+                continue
+            if "stack frame" in line or "registers" in line:
+                print(f"  {name}: {fn}: {line.split('ptxas info    :')[-1].strip()}")
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+            if m and name in ("admm_structured", "admm_dense"):
+                reported.add(fn)
+                if int(m.group(1)) or int(m.group(2)):
+                    fail(f"{name}.cu: {fn} keeps {m.group(1)} bytes of stack frame, "
+                         f"{m.group(2)} bytes of spill stores")
+        if name in ("admm_structured", "admm_dense") and (not entries or entries - reported):
+            fail(f"{name}.cu: ptxas reported no stack frame for "
+                 f"{sorted(entries - reported) or 'any entry function'}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on the card")
@@ -750,10 +862,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas_report(logs)
 
     kkt = attractor_kkt(dev)
     kernels = [check_spd_inverse(kkt), check_admm_chunk(dev), check_tick_window(dev),
@@ -763,6 +872,7 @@ def main() -> None:
 
     paths = main_path(dev)
     paths["fixed"] = fixed_path(dev)
+    horizons_path(dev)
     # each kernel's launches from the run of its own path
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
             "run_ticks_fused": "fused", "admm_iterations": "fixed"}

@@ -1,6 +1,6 @@
 // Dense-A ADMM iterations for Hopper (sm_90a): `iters` over-relaxed ADMM
-// steps per scenario against a dense constraint matrix A, one block per
-// scenario looping over the iterations.
+// steps per scenario against a dense constraint matrix A, one thread-block
+// cluster of C CTAs per scenario, A and Minv held on chip across it.
 //
 // Replaces the TPU kernel convex_mpc_tpu/mpc/kernels.py::admm_iterations
 // (_kernel), the iteration engine of the legacy fixed-segment solver
@@ -12,148 +12,317 @@
 // z <- clip(ax + y / rho, l, u) with true division, and y / rho = 0 on rows
 // with rho = 0 (the TPU kernel's inert-padding rule); y <- y + rho (ax - z).
 //
-// Layout. Minv (147,456 B at n = 192) and every vector stay in shared memory
-// for the whole chunk; A (344,064 B at 448 x 192) does not fit beside Minv in
-// a block's 227 KB, so it is streamed from device memory (or L2) twice per
-// iteration: A' t by one thread per column (a warp reads a row's adjacent
-// columns), A xt and the Minv rows by one warp per row (lanes over the
-// columns, reduced by __shfl_down_sync). Where Minv does not fit either, it
-// is read from device memory too.
-//
 // What bounds it on this card. Per 25-iteration chunk at B = 512, m = 448,
 // n = 192: 25 x (2 x 2mn + 2n^2) flops = 5.4 GFLOP, 0.081 ms at 67 TFLOP/s
 // f32; reading A and Minv once is 252 MB, 0.075 ms at 3.35 TB/s. So the
-// bound is ~0.08 ms, set by operations. This first version re-reads A every
-// iteration: 25 x 2 x 176 MB = 8.8 GB per chunk, ~2.6 ms at 3.35 TB/s. With
-// one 160 KB block per SM, too few loads are in flight to reach that rate:
-// it is memory-latency-bound (PERF.md has its measured time). Keeping A on
-// chip (split across a thread-block cluster's shared memory) is later work.
+// bound is ~0.08 ms, set by operations.
+//
+// The earlier design (one 512-thread block per scenario, Minv in its shared
+// memory, A streamed from device memory twice per iteration: 8.8 GB per
+// chunk) took 7.2566 ms per 25 iterations, slower than three torch.bmm
+// GEMVs per iteration (6.1412 ms) (chip_smoke.py, NVIDIA H100 80GB HBM3,
+// 700.00 W): with one ~165 KB block per SM too few loads were in flight,
+// and A' t ran one thread per column down a 448-long chain.
+//
+// This design. A scenario's working set, A + Minv + vectors ~ 501 KB, is
+// more than one SM's 227 KB but fits a cluster: CTA r of C keeps rows
+// [r m/C, (r+1) m/C) of A and [r n/C, (r+1) n/C) of Minv in its shared
+// memory, loaded from device memory once per chunk. Per iteration:
+//  1. each CTA forms its partial A_r' t over its rows: a thread per 4
+//     columns and row group (10 groups at n = 192), float4 loads, then a
+//     sum over the groups, sent by st.async into slot r of every CTA;
+//  2. each CTA waits for the C partials (an mbarrier counting their bytes)
+//     and sums them in rank order, so every CTA gets the same rhs;
+//  3. each CTA computes its rows of xt = Minv rhs (8 lanes per row) and
+//     sends them into every CTA's whole xt;
+//  4. each CTA waits for xt, updates x, and computes A_r xt (8 lanes per
+//     row), the relaxation, projection and dual step for its rows, and t
+//     for the next iteration.
+// The partials and xt land in double-buffered slots, so no cluster-wide
+// barrier is needed per iteration: a CTA waits only for the bytes it reads
+// (a first version with two cluster.sync() per iteration took 2.04-2.10 ms
+// in clusters of 8).
+// Three block barriers per iteration.
+//
+// Arithmetic, cluster of 4 (m/4 = 112 rows of A, 86,016 B; n/4 = 48 rows of
+// Minv, 36,864 B; ~143 KB per CTA, one CTA per SM): 30 clusters, i.e.
+// scenarios, in flight on 132 SMs (cudaOccupancyMaxActiveClusters), 17
+// waves at B = 512. Shared memory read per CTA per iteration: 2 x 86 KB +
+// 37 KB = 209 KB, ~1,630 cycles at 128 B per cycle (~0.9 us), plus the
+// waits: ~1.5 us per iteration, ~0.7 ms per 25 iterations at B = 512.
+// Cluster of 8 (56 + 24 rows, ~87 KB per CTA, two CTAs per SM): the same
+// 30 scenarios in flight, half the shared-memory reads per CTA. Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, 25 iterations, B = 512):
+// 1.5176 ms in clusters of 8 and 1.5755 ms in clusters of 4, against
+// 5.3118 ms for torch.bmm and the 0.0811 ms bound. So this file launches
+// clusters of 8 only, and raises where A's and Minv's rows do not fit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cluster_push.cuh"
+
+namespace cg = cooperative_groups;
+using namespace cluster_push;
 
 namespace {
 
 constexpr int kThreads = 512;  // 16 warps
+constexpr int kCluster = 8;    // CTAs per cluster (scenario): faster than 4 (header)
+constexpr int kMinBlocks = 2;  // CTAs per SM (~87 KB of shared memory each)
+constexpr int kLanesPerRow = 8;  // lanes that share one row's dot product
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   v = (v < lo) ? lo : v;  // NaN passes through, as torch.clamp / jnp.clip
   return (v > hi) ? hi : v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc += a.x * b.x;
+  acc += a.y * b.y;
+  acc += a.z * b.z;
+  return acc + a.w * b.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Row-split geometry of a cluster.
+struct Split {
+  int mr, nr, groups;  // A rows and Minv rows per CTA; row groups of A' t
+};
+
+__host__ __device__ __forceinline__ Split split(int m, int n) {
+  const int nc4 = n / 4;
+  Split s;
+  s.mr = (m + kCluster - 1) / kCluster;
+  s.nr = (n + kCluster - 1) / kCluster;
+  s.groups = kThreads / nc4 > 0 ? kThreads / nc4 : 1;
+  return s;
+}
+
+__host__ __device__ __forceinline__ size_t smem_floats(int m, int n) {
+  const Split s = split(m, n);
+  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n + 2 * (size_t)kCluster * n +
+         5 * (size_t)n + 6 * (size_t)s.mr;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   const float* __restrict__ q, const float* __restrict__ l,
                   const float* __restrict__ u, const float* __restrict__ rho,
                   const float* __restrict__ x0, const float* __restrict__ z0,
                   const float* __restrict__ y0, float* __restrict__ xo,
                   float* __restrict__ zo, float* __restrict__ yo, int m, int n, int iters,
-                  float sigma, float alpha, float oma, int minv_in_smem) {
+                  float sigma, float alpha, float oma) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = kThreads / 32;
+  // [0, 1]: the C partials A_c' t of iteration it land in buffer it & 1;
+  // [2, 3]: the rows of xt
+  __shared__ __align__(8) unsigned long long bars[4];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const Split sp = split(m, n);
+  const int a0 = rank * sp.mr, a1 = min(m, a0 + sp.mr), ma = a1 > a0 ? a1 - a0 : 0;
+  const int k0 = rank * sp.nr, k1 = min(n, k0 + sp.nr), nk = k1 > k0 ? k1 - k0 : 0;
+  const int nc4 = n / 4, G = sp.groups;
+  const int b = blockIdx.x / kCluster, tid = threadIdx.x, warp = tid >> 5;
+  const int sub = tid & (kLanesPerRow - 1);
+  const int rgroup = tid / kLanesPerRow, ngroups = kThreads / kLanesPerRow;
 
-  float* sq = smem;  // n
-  float* sx = sq + n;
-  float* srhs = sx + n;
-  float* sxt = srhs + n;
-  float* sl = sxt + n;  // m
-  float* su = sl + m;
-  float* srho = su + m;
-  float* sz = srho + m;
-  float* sy = sz + m;
-  float* st = sy + m;
-  float* sM = st + m;  // n * n when resident
+  float* sA = smem;                          // ma x n: rows [a0, a1) of A
+  float* sM = sA + (size_t)sp.mr * n;        // nk x n: rows [k0, k1) of Minv
+  float* sred = sM + (size_t)sp.nr * n;      // G x n: row-group partials of A_r' t
+  float* srecv = sred + (size_t)G * n;       // 2 x kCluster x n: A_c' t from each CTA c
+  float* sq = srecv + 2 * (size_t)kCluster * n;  // n
+  float* sx = sq + n;                        // n
+  float* srhs = sx + n;                      // n
+  float* sxf = srhs + n;                     // 2 x n: the whole xt, from its owners
+  float* sl = sxf + 2 * n;                   // ma each: this CTA's rows
+  float* su = sl + sp.mr;
+  float* srho = su + sp.mr;
+  float* sz = srho + sp.mr;
+  float* sy = sz + sp.mr;
+  float* st = sy + sp.mr;
 
-  const size_t bn = (size_t)b * n, bm = (size_t)b * m;
-  const float* Ab = A + (size_t)b * m * n;
+  const size_t bn = (size_t)b * n, bm = (size_t)b * m + a0;
+  const float4* Ag = reinterpret_cast<const float4*>(A + ((size_t)b * m + a0) * n);
+  for (int i = tid; i < ma * nc4; i += kThreads) reinterpret_cast<float4*>(sA)[i] = Ag[i];
+  const float4* Mg = reinterpret_cast<const float4*>(Minv + ((size_t)b * n + k0) * n);
+  for (int i = tid; i < nk * nc4; i += kThreads) reinterpret_cast<float4*>(sM)[i] = Mg[i];
   for (int i = tid; i < n; i += kThreads) {
     sq[i] = q[bn + i];
     sx[i] = x0[bn + i];
   }
-  for (int i = tid; i < m; i += kThreads) {
+  for (int i = tid; i < ma; i += kThreads) {
+    const float zi = z0[bm + i], yi = y0[bm + i], ri = rho[bm + i];
     sl[i] = l[bm + i];
     su[i] = u[bm + i];
-    srho[i] = rho[bm + i];
-    sz[i] = z0[bm + i];
-    sy[i] = y0[bm + i];
+    srho[i] = ri;
+    sz[i] = zi;
+    sy[i] = yi;
+    st[i] = ri * zi - yi;
   }
-  const float* Mg = Minv + (size_t)b * n * n;
-  const float* M = Mg;
-  if (minv_in_smem) {
-    for (int i = tid; i < n * n; i += kThreads) sM[i] = Mg[i];
-    M = sM;
+  const uint32_t bar0 = smem_u32(&bars[0]);  // bars[j] is bar0 + 8 j
+  const uint32_t recv_bytes = 4u * kCluster * n, xt_bytes = 4u * n;
+  if (tid == 0) {  // armed for iterations 0 and 1
+    for (int j = 0; j < 4; ++j) bar_init(bar0 + 8 * j);
+    bar_init_fence();
+    for (int it = 0; it < 2 && it < iters; ++it) {
+      bar_arm(bar0 + 8 * it, recv_bytes);
+      bar_arm(bar0 + 8 * (2 + it), xt_bytes);
+    }
   }
-  __syncthreads();
+  // every CTA of the cluster has started (its shared memory and barriers
+  // exist) and this CTA's loads are visible to its threads
+  cluster.sync();
+
+  // until barrier j's phase of iteration it has completed; then armed for
+  // iteration it + 2 (its peers send for it + 2 only after this CTA's next
+  // sends, which come after the arm)
+  auto wait = [&](int j, int it) {
+    const uint32_t bar = bar0 + 8 * j;
+    // two CTAs share the SM: one warp polls, the others sleep in the block
+    // barrier instead of taking issue slots from the other CTA
+    if (warp == 0) bar_wait(bar, (it >> 1) & 1);
+    __syncthreads();
+    if (tid == 0 && it + 2 < iters) bar_arm(bar, j < 2 ? recv_bytes : xt_bytes);
+  };
 
   for (int it = 0; it < iters; ++it) {
-    for (int i = tid; i < m; i += kThreads) st[i] = srho[i] * sz[i] - sy[i];
+    const int buf = it & 1;
+    float* recv = srecv + (size_t)buf * kCluster * n;
+    float* xf = sxf + (size_t)buf * n;
+    // 1. partial A_r' t: a thread per (row group, 4 columns)
+    for (int e = tid; e < G * nc4; e += kThreads) {
+      const int c4 = e % nc4, g = e / nc4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+      for (int i = g; i < ma; i += G) {
+        const float4 a = reinterpret_cast<const float4*>(sA + (size_t)i * n)[c4];
+        const float ti = st[i];
+        acc.x += a.x * ti;
+        acc.y += a.y * ti;
+        acc.z += a.z * ti;
+        acc.w += a.w * ti;
+      }
+      reinterpret_cast<float4*>(sred + (size_t)g * n)[c4] = acc;
+    }
     __syncthreads();
-    // rhs = (sigma x - q) + A' t: one thread per column
+    // 2. sum the row groups and send A_r' t into slot `rank` of every CTA
     for (int k = tid; k < n; k += kThreads) {
-      float acc = 0.0f;
-      for (int i = 0; i < m; ++i) acc += Ab[(size_t)i * n + k] * st[i];
-      srhs[k] = (sigma * sx[k] - sq[k]) + acc;
+      float s = sred[k];
+      for (int g = 1; g < G; ++g) s += sred[(size_t)g * n + k];
+      const uint32_t slot = smem_u32(recv + (size_t)rank * n + k);
+#pragma unroll
+      for (int c = 0; c < kCluster; ++c)
+        st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
+    }
+    wait(buf, it);
+    // 3. rhs = (sigma x - q) + sum over the cluster of A_c' t, in rank order
+    for (int k = tid; k < n; k += kThreads) {
+      float s = recv[k];
+#pragma unroll
+      for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * n + k];
+      srhs[k] = (sigma * sx[k] - sq[k]) + s;
     }
     __syncthreads();
-    // xt = Minv rhs: one warp per row
-    for (int r = warp; r < n; r += nwarps) {
-      const float* Mr = M + (size_t)r * n;
+    // 4. this CTA's rows of xt = Minv rhs, 8 lanes per row, sent into every
+    //    CTA's whole xt
+    for (int r0 = 0; r0 < nk; r0 += ngroups) {  // uniform bound: every lane shuffles
+      const int r = r0 + rgroup;
       float acc = 0.0f;
-      for (int k = lane; k < n; k += 32) acc += Mr[k] * srhs[k];
-      acc = warp_sum(acc);
-      if (lane == 0) sxt[r] = acc;
+      if (r < nk) {
+        const float4* Mr = reinterpret_cast<const float4*>(sM + (size_t)r * n);
+        const float4* rv = reinterpret_cast<const float4*>(srhs);
+#pragma unroll 2  // two float4 pairs in flight: the cluster-of-8 CTA has 64 registers
+        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow) acc = dot4(Mr[c4], rv[c4], acc);
+      }
+#pragma unroll
+      for (int off = kLanesPerRow / 2; off >= 1; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (r < nk && sub == 0) {
+        const uint32_t slot = smem_u32(xf + k0 + r);
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          st_async(map_rank(slot, c), acc, map_rank(bar0 + 8 * (2 + buf), c));
+      }
     }
-    __syncthreads();
-    // A xt (one warp per row), relaxation, projection and the dual step
-    for (int r = warp; r < m; r += nwarps) {
-      const float* Ar = Ab + (size_t)r * n;
+    wait(2 + buf, it);
+    // 5. x; A_r xt (8 lanes per row), relaxation, projection, dual step, next t
+    for (int k = tid; k < n; k += kThreads) sx[k] = alpha * xf[k] + oma * sx[k];
+    for (int r0 = 0; r0 < ma; r0 += ngroups) {
+      const int r = r0 + rgroup;
       float acc = 0.0f;
-      for (int k = lane; k < n; k += 32) acc += Ar[k] * sxt[k];
-      acc = warp_sum(acc);
-      if (lane == 0) {
+      if (r < ma) {
+        const float4* Ar = reinterpret_cast<const float4*>(sA + (size_t)r * n);
+        const float4* xv = reinterpret_cast<const float4*>(xf);
+#pragma unroll 2
+        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow) acc = dot4(Ar[c4], xv[c4], acc);
+      }
+#pragma unroll
+      for (int off = kLanesPerRow / 2; off >= 1; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (r < ma && sub == 0) {
         const float zi = sz[r], yi = sy[r], ri = srho[r];
         const float axr = alpha * acc + oma * zi;
         const float y_over_rho = (ri > 0.0f) ? yi / ri : 0.0f;
         const float zn = clip(axr + y_over_rho, sl[r], su[r]);
-        sy[r] = yi + ri * (axr - zn);
+        const float yn = yi + ri * (axr - zn);
         sz[r] = zn;
+        sy[r] = yn;
+        st[r] = ri * zn - yn;
       }
     }
-    for (int k = tid; k < n; k += kThreads) sx[k] = alpha * sxt[k] + oma * sx[k];
     __syncthreads();
   }
-
-  for (int i = tid; i < n; i += kThreads) xo[bn + i] = sx[i];
-  for (int i = tid; i < m; i += kThreads) {
+  // Every value sent to this CTA was waited for above, and no CTA reads
+  // another's shared memory, so each may exit on its own.
+  if (rank == 0)
+    for (int i = tid; i < n; i += kThreads) xo[bn + i] = sx[i];
+  for (int i = tid; i < ma; i += kThreads) {
     zo[bm + i] = sz[i];
     yo[bm + i] = sy[i];
   }
 }
 
+// Launches the kernel, or only asks where it fits (batch <= 0): *clusters
+// is how many clusters can be resident at once, 0 if A's and Minv's rows do
+// not fit a cluster.
+int launch(const float* A, const float* Minv, const float* q, const float* l, const float* u,
+           const float* rho, const float* x0, const float* z0, const float* y0, float* xo,
+           float* zo, float* yo, int batch, int m, int n, int iters, float sigma, float alpha,
+           float oma, cudaStream_t stream, int* clusters) {
+  if (n % 4 != 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      batch, kCluster, kThreads, smem_floats(m, n) * sizeof(float), stream, &attr);
+  cudaError_t err = resident_clusters(admm_dense_kernel, cfg, clusters);
+  if (err != cudaSuccess || *clusters < 1 || batch <= 0) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, A, Minv, q, l, u, rho, x0, z0, y0, xo, zo,
+                           yo, m, n, iters, sigma, alpha, oma);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point. A (batch, m, n); Minv (batch, n, n); q, x0, xo (batch, n);
-// l, u, rho, z0, y0, zo, yo (batch, m); all contiguous f32 on the device.
-// Returns the cudaError_t of the launch (0 on success).
+// l, u, rho, z0, y0, zo, yo (batch, m); all contiguous f32 on the device;
+// n % 4 == 0. Returns the cudaError_t of the launch (0 on success);
+// cudaErrorInvalidConfiguration if A's and Minv's rows do not fit a cluster.
 extern "C" int admm_dense_f32(const float* A, const float* Minv, const float* q, const float* l,
                               const float* u, const float* rho, const float* x0, const float* z0,
                               const float* y0, float* xo, float* zo, float* yo, int batch, int m,
                               int n, int iters, float sigma, float alpha, float oma,
-                              int minv_in_smem, cudaStream_t stream) {
-  if (batch <= 0) return 0;
-  size_t smem = (size_t)(4 * n + 6 * m) * sizeof(float);
-  if (minv_in_smem) smem += (size_t)n * n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(admm_dense_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  admm_dense_kernel<<<batch, kThreads, smem, stream>>>(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo,
-                                                       yo, m, n, iters, sigma, alpha, oma,
-                                                       minv_in_smem);
-  return (int)cudaGetLastError();
+                              cudaStream_t stream) {
+  int clusters = 0;
+  const int err = launch(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n, iters,
+                         sigma, alpha, oma, stream, &clusters);
+  return err == 0 && clusters < 1 ? (int)cudaErrorInvalidConfiguration : err;
+}
+
+// The cluster admm_dense_f32 launches for A (m, n): its CTAs into *csize and
+// how many such clusters can be resident at once into *clusters (0: A does
+// not fit). Returns a cudaError_t as above.
+extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters) {
+  *csize = kCluster;
+  return launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, nullptr, nullptr, 0, m, n, 0, 0.f, 0.f, 0.f, nullptr, clusters);
 }

@@ -5,20 +5,24 @@ Two kernels, each replacing a Pallas TPU kernel of
 
 - :func:`admm_iterations_structured` — the structured chunk of the
   production ``admm.solve_adaptive``. The CUDA kernel is
-  ``csrc/admm_structured.cu`` (one block per scenario, Minv and the vectors
-  resident in shared memory for the whole chunk; design and bound in its
-  header). The plain version is the JAX twin
-  ``admm_iterations_structured_xla`` transcribed: the same unrolled block
-  sums and the same binary-tree fold, each product and sum a separate eager
-  op, so the kernel (compiled without multiply-add contraction) can agree
-  with it bit for bit on the card;
+  ``csrc/admm_structured.cu`` (a thread-block cluster per scenario whose
+  CTAs split it by friction blocks, each with its rows of Minv on chip for
+  the whole chunk; design and bound in its header). The plain version is
+  the JAX twin ``admm_iterations_structured_xla`` transcribed: the same
+  unrolled block sums and the same binary-tree fold, each product and sum a
+  separate eager op, so the kernel (compiled without multiply-add
+  contraction) can agree with it bit for bit on the card;
 - :func:`admm_iterations` — the dense-A iterations of the legacy
   fixed-segment ``admm.solve``. The CUDA kernel is ``csrc/admm_dense.cu``
-  (one block per scenario, Minv in shared memory, A streamed each
-  iteration); the plain version is the arithmetic of the TPU ``_kernel``.
+  (a cluster per scenario whose CTAs split the rows of A and Minv, both held
+  in shared memory for the whole chunk); the plain version is the
+  arithmetic of the TPU ``_kernel``.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. Each C launcher picks its cluster shape from
+its own shared-memory layout and raises where none fits the card: no smaller
+launch is made in its place. :func:`structured_cluster_shape` and
+:func:`dense_cluster_shape` read that choice back.
 """
 
 from __future__ import annotations
@@ -29,9 +33,6 @@ import numpy as np
 import torch
 
 from convex_mpc_tpu_torch.utils import cuda_build
-
-_SMEM_LIMIT = 232448  # bytes of dynamic shared memory one block may use
-_WARP = 32
 
 
 def _next_pow2(x: int) -> int:
@@ -85,29 +86,40 @@ def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0
     return x, z, y
 
 
+def _cluster_shape(name: str, *sizes: int) -> tuple[int, int]:
+    """(CTAs per cluster, clusters resident at once on this card) of the
+    launch that ``csrc/<name>.cu`` makes for ``sizes``, as its C launcher
+    (``<name>_shape``) chooses them."""
+    fn = getattr(cuda_build.load(name), f"{name}_shape")
+    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    csize, resident = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(fn(*sizes, ctypes.byref(csize), ctypes.byref(resident)), f"{name} shape")
+    return csize.value, resident.value
+
+
+def structured_cluster_shape(nb: int) -> tuple[int, int]:
+    """The structured kernel's cluster for nb friction blocks: the smallest
+    of at least 2 CTAs whose share of Minv fits one CTA (2 at nb = 64 and 96,
+    3 at 128), and how many are resident at once."""
+    return _cluster_shape("admm_structured", nb)
+
+
 def _launch(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, iters, sigma, alpha):
     cuda_build.require_cuda("admm_iterations_structured", C, box_diag, Minv, q, l, u,
                             rho_vec, x0, z0, y0)
     B, nb = C.shape[0], C.shape[1]
-    nz, m = 3 * nb, 7 * nb
     xo = torch.empty_like(x0)
     zo = torch.empty_like(z0)
     yo = torch.empty_like(y0)
-    vpl = _next_pow2(max(nz, 128)) // _WARP
-    if vpl > 16:
-        raise ValueError(f"admm_iterations_structured kernel supports nz <= 512, got {nz}")
-    vec_bytes = (12 * nb + 5 * nz + 6 * m) * 4
-    minv_in_smem = int(vec_bytes + nz * nz * 4 <= _SMEM_LIMIT - 1024)
-    lib = cuda_build.load("admm_structured")
-    fn = lib.admm_structured_f32
+    fn = cuda_build.load("admm_structured").admm_structured_f32
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    f32 = lambda v: float(np.float32(v))
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
     stream = torch.cuda.current_stream(C.device).cuda_stream
     ptrs = [t.data_ptr() for t in (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, xo, zo, yo)]
-    err = fn(*ptrs, B, nb, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), vpl,
-             minv_in_smem, stream)
+    err = fn(*ptrs, B, nb, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
     cuda_build.check(err, "admm_iterations_structured")
     return xo, zo, yo
 
@@ -163,23 +175,26 @@ def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
     return x, z, y
 
 
+def dense_cluster_shape(m: int, n: int) -> tuple[int, int]:
+    """The dense kernel's cluster for A (m, n): 8 CTAs, and how many are
+    resident at once (0: A's and Minv's rows do not fit)."""
+    return _cluster_shape("admm_dense", m, n)
+
+
 def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
     cuda_build.require_cuda("admm_iterations", A, Minv, q, l, u, rho, x0, z0, y0)
     B, m, n = A.shape
+    if n % 4:
+        raise ValueError(f"admm_iterations kernel: n = {n} is not a multiple of 4")
     xo, zo, yo = torch.empty_like(x0), torch.empty_like(z0), torch.empty_like(y0)
-    vec_bytes = (4 * n + 6 * m) * 4
-    minv_in_smem = int(vec_bytes + n * n * 4 <= _SMEM_LIMIT - 1024)
-    if vec_bytes > _SMEM_LIMIT - 1024:
-        raise ValueError(f"admm_iterations kernel: m = {m}, n = {n} exceed shared memory")
     fn = cuda_build.load("admm_dense").admm_dense_f32
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     stream = torch.cuda.current_stream(A.device).cuda_stream
     ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
-    err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), minv_in_smem,
-             stream)
+    err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
     cuda_build.check(err, "admm_iterations")
     return xo, zo, yo
 

@@ -1,10 +1,11 @@
 """Batched SPD inverse: the hand-written CUDA kernel and its plain version.
 
 Replaces ``convex_mpc_tpu/ops/chol_kernel.py::spd_inverse`` (a Pallas TPU
-kernel). The CUDA kernel is ``csrc/spd_inverse.cu`` (one block per matrix,
-the whole matrix in shared memory; design and bound in its header). The
-wrapper takes the plain PyTorch version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+kernel). The CUDA kernel is ``csrc/spd_inverse.cu`` (one block per matrix;
+the working set in shared memory up to ``MAX_SMEM_N``, in a device-memory
+scratch buffer above it; design and bound in its header). The wrapper takes
+the plain PyTorch version for CPU tensors only; a CUDA tensor launches the
+kernel or raises.
 
 Both versions return NaN for every matrix whose Cholesky meets a pivot that
 is not positive: the polish certificate relies on that signal.
@@ -19,11 +20,11 @@ import torch
 from convex_mpc_tpu_torch.utils import cuda_build
 
 # n must be a multiple of N_MULTIPLE (the solver dispatches here on
-# nz % 32 == 0; the kernel's panels are 16 wide). MAX_N is the largest such
-# n whose n x (n + 4) f32 working set fits one block's shared memory
-# (232,448 B).
+# nz % 32 == 0; the kernel's panels are 16 wide). MAX_SMEM_N is the largest
+# such n whose n x (n + 4) f32 working set fits one block's shared memory
+# (232,448 B); above it the kernel works in a (B, n, n + 4) scratch buffer.
 N_MULTIPLE = 32
-MAX_N = 224
+MAX_SMEM_N = 224
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
@@ -41,13 +42,16 @@ def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
 
 def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
     cuda_build.require_cuda("spd_inverse", A, out)
-    lib = cuda_build.load("spd_inverse")
-    fn = lib.spd_inverse_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    B, n = A.shape[0], A.shape[1]
+    scratch = None
+    if n > MAX_SMEM_N:
+        scratch = torch.empty((B, n, n + 4), dtype=A.dtype, device=A.device)
+    fn = cuda_build.load("spd_inverse").spd_inverse_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1], stream)
+    err = fn(A.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+             B, n, stream)
     cuda_build.check(err, "spd_inverse")
 
 
@@ -62,8 +66,6 @@ def spd_inverse(A: torch.Tensor) -> torch.Tensor:
         return spd_inverse_plain(A)
     if A.device.type != "cuda":
         raise ValueError(f"spd_inverse runs on CPU or CUDA tensors, got {A.device}")
-    if A.shape[1] > MAX_N:
-        raise ValueError(f"spd_inverse kernel holds n <= {MAX_N} in shared memory, got n={A.shape[1]}")
     A = A.contiguous()
     out = torch.empty_like(A)
     if A.shape[0] > 0:

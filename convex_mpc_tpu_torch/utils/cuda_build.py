@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``) under a name that carries the hash of
-the source and flags, so an edited source is rebuilt, and loaded with
-``ctypes``. Nothing here runs at import time: the CPU tests import every
-module on machines without ``nvcc``.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt, and loaded with ``ctypes``. Nothing here runs at import
+time: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# per-kernel extra flags: the ADMM chunk pins its arithmetic order, so no
-# multiply-add contraction anywhere in that file. No file takes
+# per-kernel extra flags: the structured ADMM chunk pins its arithmetic order,
+# so no multiply-add contraction anywhere in that file. No file takes
 # --use_fast_math: division and sqrtf stay IEEE.
 KERNEL_FLAGS = {
     "spd_inverse": [],
@@ -55,13 +55,14 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, list[str]]:
     src = CSRC / f"{name}.cu"
     flags = ARCH + BASE_FLAGS + KERNEL_FLAGS[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so", flags
 
 
 def _start_build(name: str):
     out, flags = _target(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():  # built, with its compiler output
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
@@ -71,11 +72,11 @@ def _start_build(name: str):
 
 
 def _finish_build(name: str, job) -> str:
-    if job is None:
-        return ""
+    if job is None:  # built before: its compiler output is kept beside it
+        return _target(name)[0].with_suffix(".log").read_text()
     proc, tmp, out = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
@@ -83,7 +84,8 @@ def _finish_build(name: str, job) -> str:
 
 
 def build_all() -> dict[str, str]:
-    """Compile every kernel in parallel (one nvcc each); returns the logs."""
+    """Compile every kernel in parallel (one nvcc each); returns the compiler
+    output of each (``-Xptxas -v``: registers, stack frame, spills)."""
     jobs = {n: _start_build(n) for n in KERNEL_FLAGS}
     return {n: _finish_build(n, j) for n, j in jobs.items()}
 

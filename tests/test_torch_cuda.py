@@ -8,12 +8,16 @@ configures JAX, so on a machine without JAX run, from the repo root:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bars as in tests/test_torch_mpc.py: spd_inverse within 5e-5 x max|plain|
-with |A out - I| < 1e-4 on a random SPD batch; the ADMM chunk within
-atol 2e-6 / rtol 1e-5 of its plain version. As in tests/test_torch_tick_fused.py
-and tests/test_torch_fixed.py: the fused tick window within 5e-3 per channel
-over 20 ticks and 2e-4 over one tick, masks equal (the tick battery comes
-from ``chip_smoke.tick_battery``); the dense ADMM iterations within rtol and
-atol 2e-4 (``chip_smoke.dense_problem``).
+with |A out - I| < 1e-4 on a random SPD batch (n = 192, and 288 and 384 with
+the working set in device memory), a non-SPD matrix in the batch all NaN and
+its neighbours finite; the structured ADMM chunk bitwise equal to its plain
+version (nb = 64, 96, 128: horizons 16, 24, 32). As in
+tests/test_torch_tick_fused.py and tests/test_torch_fixed.py: the fused tick
+window within 5e-3 per channel over 20 ticks and 2e-4 over one tick, masks
+equal (the tick battery comes from ``chip_smoke.tick_battery``); the dense
+ADMM iterations within rtol and atol 2e-4 (``chip_smoke.dense_problem``).
+The horizon-24 production cycle at B = 8 agrees with the same cycle on the
+CPU within 2.0 N of applied force.
 """
 
 from __future__ import annotations
@@ -27,11 +31,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    dense_problem, structured_problem, tick_battery, window_misses)
+    dense_problem, spd_batch, start_batch, structured_problem, tick_battery, window_misses)
 
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
+from convex_mpc_tpu_torch.sim import engine as TE  # noqa: E402
 from convex_mpc_tpu_torch.sim import tick_fused as TTF  # noqa: E402
+from convex_mpc_tpu_torch.utils import config as TCFG  # noqa: E402
+from convex_mpc_tpu_torch.utils import interop  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -43,32 +50,36 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
-def test_spd_inverse_kernel_matches_plain():
+@pytest.mark.parametrize("n", [192, 288, 384])
+def test_spd_inverse_kernel_matches_plain(n):
     _need_cuda()
-    rng = np.random.default_rng(7)
-    M = rng.normal(size=(16, 192, 192)).astype(np.float32)
-    A = torch.as_tensor(M @ np.swapaxes(M, -1, -2) / 192 + 3 * np.eye(192, dtype=np.float32),
-                        device="cuda")
+    A = spd_batch(16, n, 7, torch.device("cuda"))
+    A[3] -= 4.0 * torch.eye(n, device="cuda")  # not SPD: all NaN, the others finite
     before = TCK.spd_inverse.launches
     out = TCK.spd_inverse(A)
     torch.cuda.synchronize()
     assert TCK.spd_inverse.launches == before + 1
     ref = TCK.spd_inverse_plain(A)
+    assert torch.isnan(out[3]).all()
+    keep = torch.arange(16, device="cuda") != 3
+    out, ref, A = out[keep], ref[keep], A[keep]
+    assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
-    assert (A @ out - torch.eye(192, device="cuda")).abs().max().item() < 1e-4
+    assert (A @ out - torch.eye(n, device="cuda")).abs().max().item() < 1e-4
 
 
+@pytest.mark.parametrize("nb", [64, 96, 128])
 @pytest.mark.parametrize("iters", [1, 25, 150])
-def test_admm_kernel_matches_plain(iters):
+def test_admm_kernel_matches_plain(iters, nb):
     _need_cuda()
-    args = structured_problem(8, 64, seed=11, dev=torch.device("cuda"))
+    args = structured_problem(8, nb, seed=11, dev=torch.device("cuda"))
     before = TK.admm_iterations_structured.launches
     out = TK.admm_iterations_structured(*args, iters=iters)
     torch.cuda.synchronize()
     assert TK.admm_iterations_structured.launches == before + 1
     ref = TK.admm_iterations_structured_plain(*args, iters=iters)
     for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-5)
+        assert torch.equal(a, b), (a - b).abs().max().item()
 
 
 @pytest.mark.parametrize("B, steps, rel", [(5, 20, 5e-3), (64, 20, 5e-3), (64, 1, 2e-4)])
@@ -84,7 +95,7 @@ def test_tick_window_kernel_matches_plain(B, steps, rel):
     assert not miss.any(), errs
 
 
-@pytest.mark.parametrize("iters", [1, 25])
+@pytest.mark.parametrize("iters", [1, 25, 50])
 def test_admm_dense_kernel_matches_plain(iters):
     _need_cuda()
     args = dense_problem(8, 64, seed=11, dev=torch.device("cuda"))
@@ -95,3 +106,19 @@ def test_admm_dense_kernel_matches_plain(iters):
     ref = TK.admm_iterations_plain(*args, iters=iters)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+def test_horizon24_cycle_card_vs_cpu():
+    """One production cycle at horizon 24 (nz = 288) on the card and on the CPU."""
+    _need_cuda()
+    kw = TCFG.engine_kwargs_batched(TCFG.EngineConfig(mpc=TCFG.MpcConfig(horizon=24)))
+    dyn, *batch = start_batch(8, torch.device("cuda"), 24)
+    cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    before = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
+    s_gpu, _ = TE.mpc_cycle_batch(dyn, *batch, **kw)
+    torch.cuda.synchronize()
+    after = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    s_cpu, _ = TE.mpc_cycle_batch(cpu(dyn), *[cpu(a) for a in batch], **kw)
+    du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
+    assert du0 < 2.0, du0  # Newtons

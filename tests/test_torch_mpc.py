@@ -175,9 +175,14 @@ def test_spd_inverse_on_attractor_kkt(update_batch):
     assert res_port <= 2.0 * res_jax + 1e-5, (res_port, res_jax)
 
 
-@pytest.mark.parametrize("iters", [1, 25, 150])
-def test_admm_chunk_plain_matches_xla_twin(iters):
-    args = _structured_problem()
+@pytest.mark.parametrize("B, nb, iters", [
+    pytest.param(4, 64, 1, id="1"), pytest.param(4, 64, 25, id="25"),
+    pytest.param(4, 64, 150, id="150"),
+    # horizon 24's nz = 288: the fold's 512-lane tree (the kernel's VPL = 16)
+    pytest.param(2, 96, 25, id="nb96-25"),
+])
+def test_admm_chunk_plain_matches_xla_twin(B, nb, iters):
+    args = _structured_problem(B=B, nb=nb)
     ref = JK.admm_iterations_structured_xla(*args, iters=iters)
     out = TK.admm_iterations_structured_plain(*[t(a) for a in args], iters=iters)
     for name, a, d in zip("xzy", out, ref):
