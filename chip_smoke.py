@@ -10,8 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, with CUDA-event times of the kernel, the plain version and a
    yardstick the port never calls: ``spd_inverse`` at B = 512 on random SPD
-   batches at n = 192, 288 and 384 (horizons 16, 24, 32; one matrix of each
-   made non-SPD must come back all NaN) and on the solver's KKT matrix at
+   batches at n = 192, 288 and 384 (horizons 16, 24, 32; where its working
+   set lives and its CTAs per SM, at least 2 at n = 192; one matrix of each
+   made non-SPD at its first pivot and one at its last panel must come back
+   all NaN) and on the solver's KKT matrix at
    attractor-region rho (1e-4); the structured ADMM chunk at B = 512,
    nb = 64, 96 and 128, bitwise equal to its plain version after 25 and 150
    iterations; the fused tick window at B = 512 for 20 ticks (5e-3 per
@@ -21,8 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``engine._run_ticks`` window as its yardstick; the dense ADMM
    iterations at B = 512, A (448, 192), for 25 and 50 iterations (rtol and
    atol 2e-4) in clusters of 8 CTAs. Before them, each kernel's
-   ``ptxas -v`` lines; the two cluster kernels must show no stack frame and
-   no spills;
+   ``ptxas -v`` lines; ``spd_inverse`` and the two cluster kernels must show
+   no stack frame and no spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
    DEFAULT_CONFIG)`` at B = 512, horizon 16 from the start state of the JAX
    package's ``bench.py``; 16 settle cycles, then one timed 16-cycle window,
@@ -221,69 +223,102 @@ def spd_times(A: torch.Tensor) -> tuple:
     return ms, plain_ms, lib_ms, b_ms, b_by
 
 
+def spd_nonspd(A: torch.Tensor, first: int, last: int) -> None:
+    """Make two matrices of an SPD batch non-SPD in place: ``first`` fails at
+    its first pivot (A - 4 I), ``last`` only in its last 16 x 16 panel (a
+    rank-1 term confined to its last 16 rows and columns)."""
+    n = A.shape[-1]
+    A[first] -= 4.0 * torch.eye(n, device=A.device)
+    A[last, n - 16:, n - 16:] -= 50.0
+
+
 def check_spd_random(n: int, dev) -> float:
     """spd_inverse against its plain version on a random SPD batch of size n
-    at B_MAIN, one matrix of it made non-SPD (its output must be all NaN, the
-    others finite). Returns max|kernel - plain| over the SPD matrices."""
-    from convex_mpc_tpu_torch.ops.chol_kernel import MAX_SMEM_N, spd_inverse, spd_inverse_plain
+    at B_MAIN, two matrices of it made non-SPD (``spd_nonspd``: their outputs
+    must be all NaN, the others finite). Prints where the kernel keeps its
+    working set and its CTAs per SM (at least 2 at n = 192). Returns
+    max|kernel - plain| over the SPD matrices."""
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain, spd_inverse_shape
 
-    B, bad = B_MAIN, 5
+    smem, scratch, ctas = spd_inverse_shape(n)
+    where = (f"on chip, {smem} B of shared memory" if smem else
+             f"in device memory, {scratch} floats of scratch per matrix")
+    print(f"spd_inverse n={n}: working set {where}; {ctas} CTAs resident per SM")
+    if n == 192 and ctas < 2:
+        fail(f"spd_inverse at n=192 keeps {ctas} CTA per SM, not at least 2")
+    B, bad = B_MAIN, (5, B_MAIN - 3)
     A = spd_batch(B, n, 7, dev)
-    A[bad] -= 4.0 * torch.eye(n, device=dev)
+    spd_nonspd(A, *bad)
     out = spd_inverse(A)
     torch.cuda.synchronize()
     ref = spd_inverse_plain(A)
-    keep = torch.arange(B, device=dev) != bad
-    nan_ok = bool(torch.isnan(out[bad]).all() and torch.isfinite(out[keep]).all())
+    keep = torch.ones(B, dtype=torch.bool, device=dev)
+    keep[list(bad)] = False
+    nan_ok = bool(torch.isnan(out[~keep]).all() and torch.isfinite(out[keep]).all()
+                  and torch.isnan(ref[~keep]).all())
     o, r = out[keep], ref[keep]
     err = (o - r).abs().max().item()
     scale = r.abs().max().item()
     resid = (A[keep] @ o - torch.eye(n, device=dev)).abs().max().item()
-    where = "shared" if n <= MAX_SMEM_N else "device"
-    print(f"spd_inverse random SPD B={B} n={n} (working set in {where} memory): "
+    print(f"spd_inverse random SPD B={B} n={n}: "
           f"max|k-plain|={err:.3e} (bar {5e-5 * scale:.3e}) |A out - I|={resid:.3e} (bar 1e-4) "
-          f"bitwise={torch.equal(o, r)}; non-SPD matrix all NaN, the others finite: {nan_ok}")
+          f"bitwise={torch.equal(o, r)}; non-SPD matrices (first pivot, last panel) all NaN, "
+          f"the others finite: {nan_ok}")
     if not (err <= 5e-5 * scale and resid < 1e-4 and nan_ok):
         fail(f"spd_inverse disagrees with its plain version on the random batch at n={n}")
     return err
 
 
-def check_spd_inverse(kkt: torch.Tensor) -> dict:
+def spd_kkt_errors(kkt: torch.Tensor) -> dict:
+    """spd_inverse (the kernel) and its plain version on ``kkt`` against the
+    f64 inverse: max errors (``e_kernel``, ``e_plain``) and residuals
+    |K out - I| (``r_kernel``, ``r_plain``), the f64 inverse's largest entry
+    ``kscale``, max|kernel - plain| ``kerr`` beside the plain version's
+    largest entry ``pscale``, and ``within_bar``: the kernel finite with
+    error and residual at most twice the plain version's."""
     from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 
+    out_k = spd_inverse(kkt)
+    torch.cuda.synchronize()
+    ref_k = spd_inverse_plain(kkt)
+    K64 = kkt.double()
+    truth = torch.cholesky_inverse(torch.linalg.cholesky(K64))
+    eye64 = torch.eye(kkt.shape[-1], dtype=torch.float64, device=kkt.device)
+    k = dict(kscale=truth.abs().max().item(),
+             e_kernel=(out_k.double() - truth).abs().max().item(),
+             e_plain=(ref_k.double() - truth).abs().max().item(),
+             r_kernel=(K64 @ out_k.double() - eye64).abs().max().item(),
+             r_plain=(K64 @ ref_k.double() - eye64).abs().max().item(),
+             kerr=(out_k - ref_k).abs().max().item(), pscale=ref_k.abs().max().item(),
+             bitwise=torch.equal(out_k, ref_k))
+    k["within_bar"] = bool(torch.isfinite(out_k).all()
+                           and k["e_kernel"] <= 2 * k["e_plain"] + 1e-5 * k["kscale"]
+                           and k["r_kernel"] <= 2 * k["r_plain"] + 1e-5)
+    return k
+
+
+def check_spd_inverse(kkt: torch.Tensor) -> dict:
     dev = kkt.device
     n = 192
-    # horizons 24 and 32 (n = 288, 384): the device-memory working set
+    # horizons 24 and 32 (n = 288 on chip, 384 in device memory)
     err = max(check_spd_random(nn, dev) for nn in (192, 288, 384))
     for nn in (288, 384):
         spd_times(spd_batch(B_MAIN, nn, 7, dev))
 
     # the solver's KKT at attractor-region rho: cond ~1e4, so the bar is
     # relative to the f64 inverse (within twice the plain version's error)
-    out_k = spd_inverse(kkt)
-    torch.cuda.synchronize()
-    ref_k = spd_inverse_plain(kkt)
-    K64 = kkt.double()
-    truth = torch.cholesky_inverse(torch.linalg.cholesky(K64))
-    kscale = truth.abs().max().item()
-    e_kernel = (out_k.double() - truth).abs().max().item()
-    e_plain = (ref_k.double() - truth).abs().max().item()
-    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
-    r_kernel = (K64 @ out_k.double() - eye64).abs().max().item()
-    r_plain = (K64 @ ref_k.double() - eye64).abs().max().item()
-    kerr = (out_k - ref_k).abs().max().item()
-    pscale = ref_k.abs().max().item()
-    print(f"spd_inverse KKT rho=1e-4 B={B_MAIN}: max|k-plain|={kerr:.3e} (= {kerr / kscale:.2e} x scale) "
-          f"|k-f64|={e_kernel / kscale:.2e} x scale vs plain {e_plain / kscale:.2e}; "
-          f"|A out - I| kernel {r_kernel:.3e} plain {r_plain:.3e}; "
-          f"bitwise={torch.equal(out_k, ref_k)}")
+    k = spd_kkt_errors(kkt)
+    print(f"spd_inverse KKT rho=1e-4 B={B_MAIN}: max|k-plain|={k['kerr']:.3e} "
+          f"(= {k['kerr'] / k['kscale']:.2e} x scale) "
+          f"|k-f64|={k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
+          f"{k['e_plain'] / k['kscale']:.2e}; "
+          f"|A out - I| kernel {k['r_kernel']:.3e} plain {k['r_plain']:.3e}; bitwise={k['bitwise']}")
     # the random-SPD bar, reported but not required here: on this cond ~1e4
     # matrix the plain version is itself farther than that from the f64 inverse
-    met = kerr <= 5e-5 * pscale and r_kernel < 1e-4
+    met = k["kerr"] <= 5e-5 * k["pscale"] and k["r_kernel"] < 1e-4
     print(f"spd_inverse KKT against the random-SPD bar (|k-plain| <= 5e-5 x scale = "
-          f"{5e-5 * pscale:.3e}, |A out - I| < 1e-4): {'met' if met else 'NOT met'}")
-    if not (torch.isfinite(out_k).all() and e_kernel <= 2 * e_plain + 1e-5 * kscale
-            and r_kernel <= 2 * r_plain + 1e-5):
+          f"{5e-5 * k['pscale']:.3e}, |A out - I| < 1e-4): {'met' if met else 'NOT met'}")
+    if not k["within_bar"]:
         fail("spd_inverse on the attractor-rho KKT is less accurate than twice the plain version")
 
     # the main path's size (horizon 16) for the kernel table
@@ -291,7 +326,7 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
     return dict(name="spd_inverse", route="cuda",
                 source="convex_mpc_tpu_torch/csrc/spd_inverse.cu",
                 replaces="convex_mpc_tpu/ops/chol_kernel.py:227",
-                max_abs_err=max(err, kerr), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=max(err, k["kerr"]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
 
@@ -791,8 +826,9 @@ def fixed_path(dev) -> dict:
 
 def horizons_path(dev) -> None:
     """Phase 6: the production cycle at horizons 24 and 32 (nz = 288, 384:
-    ``spd_inverse`` with its device-memory working set, the structured chunk
-    in clusters of 2 and 3 CTAs), mpc_dt = gait period / horizon."""
+    ``spd_inverse`` with its working set on chip and in device memory, the
+    structured chunk in clusters of 2 and 3 CTAs), mpc_dt = gait period /
+    horizon."""
     from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
 
@@ -816,11 +852,13 @@ def horizons_path(dev) -> None:
 
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
-    printed them. Every entry function of the two cluster kernels must report
-    its stack frame, spill nothing and keep no array in local memory (a stack
-    frame)."""
+    printed them. Every entry function of ``spd_inverse`` and of the two
+    cluster kernels must report its stack frame, spill nothing and keep no
+    array in local memory (a stack frame); all lines are printed first."""
     import re
 
+    checked = ("spd_inverse", "admm_structured", "admm_dense")
+    faults = []
     for name, log in logs.items():
         fn, entries, reported = None, set(), set()
         for line in log.splitlines():
@@ -832,14 +870,16 @@ def ptxas_report(logs: dict) -> None:
             if "stack frame" in line or "registers" in line:
                 print(f"  {name}: {fn}: {line.split('ptxas info    :')[-1].strip()}")
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-            if m and name in ("admm_structured", "admm_dense"):
+            if m and name in checked:
                 reported.add(fn)
                 if int(m.group(1)) or int(m.group(2)):
-                    fail(f"{name}.cu: {fn} keeps {m.group(1)} bytes of stack frame, "
-                         f"{m.group(2)} bytes of spill stores")
-        if name in ("admm_structured", "admm_dense") and (not entries or entries - reported):
-            fail(f"{name}.cu: ptxas reported no stack frame for "
-                 f"{sorted(entries - reported) or 'any entry function'}")
+                    faults.append(f"{name}.cu: {fn} keeps {m.group(1)} bytes of stack frame, "
+                                  f"{m.group(2)} bytes of spill stores")
+        if name in checked and (not entries or entries - reported):
+            faults.append(f"{name}.cu: ptxas reported no stack frame for "
+                          f"{sorted(entries - reported) or 'any entry function'}")
+    if faults:
+        fail("; ".join(faults))
 
 
 def main() -> None:

@@ -2,8 +2,9 @@
 
 Replaces ``convex_mpc_tpu/ops/chol_kernel.py::spd_inverse`` (a Pallas TPU
 kernel). The CUDA kernel is ``csrc/spd_inverse.cu`` (one block per matrix;
-the working set in shared memory up to ``MAX_SMEM_N``, in a device-memory
-scratch buffer above it; design and bound in its header). The wrapper takes
+its C side decides whether the packed working set lives in shared memory or
+in a device-memory scratch buffer, and ``spd_inverse_shape`` reads that
+choice back; design and bound in its header). The wrapper takes
 the plain PyTorch version for CPU tensors only; a CUDA tensor launches the
 kernel or raises.
 
@@ -20,11 +21,8 @@ import torch
 from convex_mpc_tpu_torch.utils import cuda_build
 
 # n must be a multiple of N_MULTIPLE (the solver dispatches here on
-# nz % 32 == 0; the kernel's panels are 16 wide). MAX_SMEM_N is the largest
-# such n whose n x (n + 4) f32 working set fits one block's shared memory
-# (232,448 B); above it the kernel works in a (B, n, n + 4) scratch buffer.
+# nz % 32 == 0; the kernel's panels are 16 wide).
 N_MULTIPLE = 32
-MAX_SMEM_N = 224
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
@@ -40,18 +38,52 @@ def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[:, None, None], float("nan"), out)
 
 
+_lib = None
+_shapes: dict[tuple[int, int], tuple[int, int, int]] = {}
+
+
+def _library() -> ctypes.CDLL:
+    """The loaded ``spd_inverse`` library, its entry points typed once."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("spd_inverse")
+        lib.spd_inverse_shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_longlong),
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.spd_inverse_shape.restype = ctypes.c_int
+        lib.spd_inverse_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+        lib.spd_inverse_f32.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def spd_inverse_shape(n: int) -> tuple[int, int, int]:
+    """The launch ``csrc/spd_inverse.cu`` makes for n on the current card, as
+    its C side chooses it: (dynamic shared-memory bytes, scratch floats per
+    matrix, CTAs resident per SM). Exactly one of the first two is 0: the
+    packed working set of n (n + 4) / 2 floats is on chip or in the scratch.
+    Asked of the C side once per (card, n)."""
+    key = (torch.cuda.current_device(), n)
+    shape = _shapes.get(key)
+    if shape is None:
+        smem, scratch, ctas = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_int(0)
+        cuda_build.check(_library().spd_inverse_shape(n, ctypes.byref(smem), ctypes.byref(scratch),
+                                                      ctypes.byref(ctas)), "spd_inverse shape")
+        shape = _shapes[key] = (smem.value, scratch.value, ctas.value)
+    return shape
+
+
 def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
     cuda_build.require_cuda("spd_inverse", A, out)
     B, n = A.shape[0], A.shape[1]
+    _, scratch_floats, _ = spd_inverse_shape(n)
     scratch = None
-    if n > MAX_SMEM_N:
-        scratch = torch.empty((B, n, n + 4), dtype=A.dtype, device=A.device)
-    fn = cuda_build.load("spd_inverse").spd_inverse_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if scratch_floats:
+        scratch = torch.empty((B, scratch_floats), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(A.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-             B, n, stream)
+    err = _library().spd_inverse_f32(A.data_ptr(), out.data_ptr(),
+                                     None if scratch is None else scratch.data_ptr(), B, n, stream)
     cuda_build.check(err, "spd_inverse")
 
 

@@ -1,14 +1,19 @@
-"""CUDA-event times of the two ADMM kernels of one checkout of the port.
+"""CUDA-event times of the solve kernels of one checkout of the port.
 
     python3 kernel_times.py [--root DIR] [--nb 64 96 128]
 
 Imports ``convex_mpc_tpu_torch`` from DIR (default: the directory of this
 script), which builds its kernels under DIR, and times on one card, at
-B = 512 on ``chip_smoke.py``'s problems (seed 11), 25 iterations:
-``admm_iterations_structured`` at each nb, and ``admm_iterations`` at
-A (448, 192). Prints the card's name and power limit, then one JSON line per
-time. To compare two checkouts, run it on each in one call on one card:
-older, newer, newer, older.
+B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
+and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
+25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and
+``admm_iterations`` at A (448, 192). Prints the card's name and power
+limit, then one JSON line per time (``spd_inverse``'s also with the host
+microseconds per call of its wrapper, 100 calls queued without a wait), and
+one with ``spd_inverse``'s error on ``chip_smoke.attractor_kkt`` (cond
+~1e4) against the f64 inverse, as a fraction of its largest entry, and its
+residual |K out - I|. To compare two checkouts, run it on each in one call
+on one card: older, newer, newer, older.
 """
 
 from __future__ import annotations
@@ -17,11 +22,13 @@ import argparse
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 HERE = Path(__file__).resolve().parent
+SPD_N = (192, 288, 384)  # spd_inverse at horizons 16, 24, 32
 
 
 def _smoke():
@@ -30,6 +37,19 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of ``fn``: the wrapper's own cost, the card
+    left to run behind it (the launch queue holds all ``calls``)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def main() -> None:
@@ -41,9 +61,22 @@ def main() -> None:
         sys.exit("kernel_times.py: no CUDA device")
     sys.path.insert(0, str(a.root.resolve()))
     from convex_mpc_tpu_torch.mpc import kernels as K
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
 
     smoke, dev, B = _smoke(), torch.device("cuda"), 512
     print(smoke.card_identity())
+    for n in SPD_N:
+        A = smoke.spd_batch(B, n, 7, dev)
+        ms = smoke.cuda_ms(lambda: spd_inverse(A))
+        print(json.dumps({"root": str(a.root), "kernel": "spd_inverse", "B": B, "n": n,
+                          "ms": ms, "host_us": host_us(lambda: spd_inverse(A))}))
+        del A
+    kkt = smoke.attractor_kkt(dev)
+    k = smoke.spd_kkt_errors(kkt)
+    print(json.dumps({"root": str(a.root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
+                      "case": "attractor-rho KKT", "err_of_scale": k["e_kernel"] / k["kscale"],
+                      "resid": k["r_kernel"]}))
+    del kkt
     for nb in a.nb:
         args = smoke.structured_problem(B, nb, seed=11, dev=dev)
         ms = smoke.cuda_ms(lambda: K.admm_iterations_structured(*args, iters=25))

@@ -8,10 +8,14 @@ configures JAX, so on a machine without JAX run, from the repo root:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bars as in tests/test_torch_mpc.py: spd_inverse within 5e-5 x max|plain|
-with |A out - I| < 1e-4 on a random SPD batch (n = 192, and 288 and 384 with
-the working set in device memory), a non-SPD matrix in the batch all NaN and
-its neighbours finite; the structured ADMM chunk bitwise equal to its plain
-version (nb = 64, 96, 128: horizons 16, 24, 32). As in
+with |A out - I| < 1e-4 on a random SPD batch (n = 32 up to 384: the smallest
+tile count, the largest n whose packed working set fits in shared memory at
+several CTAs per SM, and n = 384 with it in device memory; B = 1 and
+B = 133), a matrix failing at its first pivot and one failing only in its
+last panel all NaN and their neighbours finite; on the solver's KKT at
+attractor-region rho, spd_inverse's error and residual against the f64
+inverse at most twice the plain version's; the structured ADMM chunk
+bitwise equal to its plain version (nb = 64, 96, 128: horizons 16, 24, 32). As in
 tests/test_torch_tick_fused.py and tests/test_torch_fixed.py: the fused tick
 window within 5e-3 per channel over 20 ticks and 2e-4 over one tick, masks
 equal (the tick battery comes from ``chip_smoke.tick_battery``); the dense
@@ -31,7 +35,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    dense_problem, spd_batch, start_batch, structured_problem, tick_battery, window_misses)
+    attractor_kkt, dense_problem, spd_batch, spd_kkt_errors, spd_nonspd, start_batch,
+    structured_problem, tick_battery, window_misses)
 
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
@@ -50,22 +55,58 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
-@pytest.mark.parametrize("n", [192, 288, 384])
-def test_spd_inverse_kernel_matches_plain(n):
-    _need_cuda()
-    A = spd_batch(16, n, 7, torch.device("cuda"))
-    A[3] -= 4.0 * torch.eye(n, device="cuda")  # not SPD: all NaN, the others finite
+def _check_spd(A, bad=()):
+    """spd_inverse on A: one launch, the matrices in ``bad`` all NaN, the
+    others finite and within the bars of the plain version."""
+    n = A.shape[-1]
     before = TCK.spd_inverse.launches
     out = TCK.spd_inverse(A)
     torch.cuda.synchronize()
     assert TCK.spd_inverse.launches == before + 1
     ref = TCK.spd_inverse_plain(A)
-    assert torch.isnan(out[3]).all()
-    keep = torch.arange(16, device="cuda") != 3
+    keep = torch.ones(A.shape[0], dtype=torch.bool, device="cuda")
+    keep[list(bad)] = False
+    assert torch.isnan(out[~keep]).all()
     out, ref, A = out[keep], ref[keep], A[keep]
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
     assert (A @ out - torch.eye(n, device="cuda")).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("n", [32, 96, 192, 224, 256, 288, 384])
+def test_spd_inverse_kernel_matches_plain(n):
+    _need_cuda()
+    A = spd_batch(16, n, 7, torch.device("cuda"))
+    spd_nonspd(A, 3, 9)  # 3 fails at its first pivot, 9 only in its last panel
+    _check_spd(A, bad=(3, 9))
+
+
+@pytest.mark.parametrize("B", [1, 133])
+def test_spd_inverse_kernel_batch_sizes(B):
+    """One matrix, and more matrices than the card has SMs (132)."""
+    _need_cuda()
+    _check_spd(spd_batch(B, 192, 5, torch.device("cuda")))
+
+
+def test_spd_inverse_kernel_on_attractor_kkt():
+    """The solver's KKT at attractor-region rho (cond ~1e4, B = 512, n = 192):
+    the kernel finite, its error and residual against the f64 inverse at
+    most twice the plain version's."""
+    _need_cuda()
+    k = spd_kkt_errors(attractor_kkt(torch.device("cuda")))
+    assert k["within_bar"], k
+
+
+def test_spd_inverse_shape():
+    """The C side's choice: n = 192 on chip with at least 2 CTAs per SM,
+    288 on chip, 384 in a scratch of n (n + 4) / 2 floats per matrix."""
+    _need_cuda()
+    smem, scratch, ctas = TCK.spd_inverse_shape(192)
+    assert (smem, scratch) == (192 * 196 * 2, 0) and ctas >= 2
+    smem, scratch, ctas = TCK.spd_inverse_shape(288)
+    assert (smem, scratch) == (288 * 292 * 2, 0) and ctas >= 1
+    smem, scratch, ctas = TCK.spd_inverse_shape(384)
+    assert (smem, scratch) == (0, 384 * 388 // 2) and ctas >= 1
 
 
 @pytest.mark.parametrize("nb", [64, 96, 128])

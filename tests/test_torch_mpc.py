@@ -135,16 +135,19 @@ def test_spd_inverse_plain_matches_jax(interpret):
 
 def test_spd_inverse_nan_signal_and_cpu_wrapper():
     """A non-SPD matrix gives NaN in that matrix only (the polish
-    certificate's signal); the CPU wrapper runs the plain version and
-    launches no kernel."""
-    A = _spd_batch(3, 64, seed=2)
+    certificate's signal), whether its factorization fails early (matrix 1)
+    or only in its last 16 x 16 panel (matrix 3: a rank-1 term confined to
+    its last 16 rows and columns); the CPU wrapper runs the plain version
+    and launches no kernel."""
+    A = _spd_batch(4, 64, seed=2)
     A[1, 10, 10] = -4.0
+    A[3, 48:, 48:] -= 50.0
     ref = np.asarray(jax_spd_inverse(jnp.asarray(A)))
     before = TCK.spd_inverse.launches
     out = TCK.spd_inverse(t(A)).numpy()
     assert TCK.spd_inverse.launches == before
     np.testing.assert_array_equal(np.isnan(out).all(axis=(1, 2)), np.isnan(ref).all(axis=(1, 2)))
-    assert np.isnan(out[1]).all() and np.isfinite(out[[0, 2]]).all()
+    assert np.isnan(out[[1, 3]]).all() and np.isfinite(out[[0, 2]]).all()
 
 
 def test_spd_inverse_on_attractor_kkt(update_batch):
