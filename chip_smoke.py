@@ -14,17 +14,23 @@ Phases (any failure exits non-zero and prints no result line):
    set lives and its CTAs per SM, at least 2 at n = 192; one matrix of each
    made non-SPD at its first pivot and one at its last panel must come back
    all NaN) and on the solver's KKT matrix at
-   attractor-region rho (1e-4); the structured ADMM chunk at B = 512,
+   attractor-region rho (1e-4), and at the rho the solver and its warm
+   carry reach below it (1e-5 and 1e-6: error and residual against the f64
+   inverse at most twice the plain version's, as at 1e-4); the structured
+   ADMM chunk at B = 512,
    nb = 64, 96 and 128, bitwise equal to its plain version after 25 and 150
-   iterations; the fused tick window at B = 512 for 20 ticks (5e-3 per
-   channel) and one tick (2e-4), and a ragged B = 5 (at most ``MAX_FLIPS``
-   scenarios that took another contact branch within ``FLIP_MARGIN`` of its
-   threshold are excused from the bar), with the eager
-   ``engine._run_ticks`` window as its yardstick; the dense ADMM
+   iterations; the fused tick window (its launch shape printed) at B = 512
+   for 20 ticks (5e-3 per channel) and one tick (2e-4), at ragged B = 5,
+   13 and 517 (one block per scenario, so no block is partly filled) and at
+   B = 512 on a duty = 1 gait
+   (no leg swings; at most ``MAX_FLIPS`` scenarios that took another
+   contact branch within ``FLIP_MARGIN`` of its threshold are excused from
+   the bar), with the eager ``engine._run_ticks`` window as its yardstick;
+   the dense ADMM
    iterations at B = 512, A (448, 192), for 25 and 50 iterations (rtol and
    atol 2e-4) in clusters of 8 CTAs. Before them, each kernel's
-   ``ptxas -v`` lines; ``spd_inverse`` and the two cluster kernels must show
-   no stack frame and no spills;
+   ``ptxas -v`` lines; every kernel must show no stack frame and no
+   spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
    DEFAULT_CONFIG)`` at B = 512, horizon 16 from the start state of the JAX
    package's ``bench.py``; 16 settle cycles, then one timed 16-cycle window,
@@ -321,6 +327,19 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
     if not k["within_bar"]:
         fail("spd_inverse on the attractor-rho KKT is less accurate than twice the plain version")
 
+    # below the attractor region: the solver lets rho fall to 1e-6, its warm
+    # carry keeps it down to 1e-5; the same bar
+    for rho in (1e-5, 1e-6):
+        k = spd_kkt_errors(attractor_kkt(dev, rho))
+        print(f"spd_inverse KKT rho={rho:g} B={B_MAIN}: |k-f64| = "
+              f"{k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
+              f"{k['e_plain'] / k['kscale']:.2e} (bar twice the plain + 1e-5 x scale); "
+              f"|A out - I| kernel {k['r_kernel']:.3e} plain {k['r_plain']:.3e} (bar twice the "
+              f"plain + 1e-5); max|k-plain| {k['kerr']:.3e}; within bar: {k['within_bar']}")
+        if not k["within_bar"]:
+            fail(f"spd_inverse on the KKT at rho={rho:g} is less accurate than twice the plain "
+                 f"version")
+
     # the main path's size (horizon 16) for the kernel table
     ms, plain_ms, lib_ms, b_ms, b_by = spd_times(spd_batch(B_MAIN, n, 7, dev))
     return dict(name="spd_inverse", route="cuda",
@@ -379,10 +398,11 @@ def check_admm_chunk(dev) -> dict:
 TickTraj = namedtuple("TickTraj", ["pos_des_world", "vel_des_world"])
 
 
-def tick_battery(B: int, seed: int, dev):
+def tick_battery(B: int, seed: int, dev, duty: float = 0.6):
     """``run_ticks_fused``'s arguments for a random mid-gait batch covering
     swing/stance edges and contact (tests/test_tick_fused.py's battery, built
-    in torch from the same numpy draws)."""
+    in torch from the same numpy draws); ``duty`` = 1 gives a gait in which
+    no leg swings (zero swing time)."""
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.control import leg as L
     from convex_mpc_tpu_torch.control import reference as R
@@ -393,7 +413,7 @@ def tick_battery(B: int, seed: int, dev):
     rng = np.random.default_rng(seed)
     dyn = D.build_dyn(device=dev)
     contact = P.default_contact(device=dev)
-    gait = G.make_gait_params(3.0, 0.6, device=dev)
+    gait = G.make_gait_params(3.0, duty, device=dev)
     q = np.tile(P.init_plant(dyn, contact=contact).q.cpu().numpy(), (B, 1))
     q[:, 0:2] += rng.normal(0, 0.02, (B, 2))
     q[:, 2] += rng.normal(0, 0.01, B)
@@ -541,17 +561,23 @@ def check_tick_window(dev) -> dict:
     from convex_mpc_tpu_torch.sim import tick_fused as TF
 
     worst = 0.0
-    for B, steps, rel, seed in [(B_MAIN, 20, 5e-3, 13), (B_MAIN, 1, 2e-4, 14), (5, 20, 5e-3, 1)]:
-        args = tick_battery(B, seed, dev)
+    for B in (B_MAIN, 5, 13, 517):
+        threads, blocks, resident = TF.tick_window_shape(B)
+        print(f"tick window launch B={B}: {blocks} blocks of {threads} threads "
+              f"(one scenario a block), {resident} blocks resident per SM")
+    for B, steps, rel, seed, duty in [(B_MAIN, 20, 5e-3, 13, 0.6), (B_MAIN, 1, 2e-4, 14, 0.6),
+                                      (5, 20, 5e-3, 1, 0.6), (13, 20, 5e-3, 2, 0.6),
+                                      (517, 20, 5e-3, 3, 0.6), (B_MAIN, 20, 5e-3, 15, 1.0)]:
+        args = tick_battery(B, seed, dev, duty)
         out = TF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
         torch.cuda.synchronize()
         ref = TF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)  # on the card
-        if (B, steps) == (B_MAIN, 20):
+        if (B, steps, duty) == (B_MAIN, 20, 0.6):
             out_main = out
         miss, errs, max_abs = window_misses(out, ref, rel)
         excused, margins = rounding_flips(out, ref, args[2])
         n_miss, n_flip = int(miss.sum()), len(margins)
-        print(f"tick window B={B} steps={steps}: worst |k-plain| / channel scale "
+        print(f"tick window B={B} steps={steps} duty={duty}: worst |k-plain| / channel scale "
               f"{max(errs[k] for k in errs if not k.endswith('mask')):.3e} (bar {rel}), max "
               f"|k-plain| {max_abs:.3e}; integer mismatches {{last_mask: "
               f"{errs['leg.last_mask']}, contact_mask: {errs['ticks.contact_mask']}}}; "
@@ -565,7 +591,8 @@ def check_tick_window(dev) -> dict:
                  f"{MAX_FLIPS} may, each within rounding of its threshold)")
         unexplained = (miss & ~excused).nonzero()[:, 0].tolist()
         if unexplained:
-            fail(f"tick window kernel disagrees with its plain version (B={B}, steps={steps}) "
+            fail(f"tick window kernel disagrees with its plain version (B={B}, steps={steps}, "
+                 f"duty={duty}) "
                  f"in scenarios {unexplained[:16]} not excused as rounding flips: {errs}")
         worst = max(worst, max_abs)
 
@@ -690,8 +717,9 @@ def start_batch(B: int, dev, n: int = HORIZON):
     return dyn, gait_b, contact_b, sched_b, state_b
 
 
-def attractor_kkt(dev) -> torch.Tensor:
-    """The solver's KKT matrices at rho = 1e-4 for the main path's first QP batch."""
+def attractor_kkt(dev, rho: float = 1e-4) -> torch.Tensor:
+    """The solver's KKT matrices at ``rho`` (default 1e-4, the attractor
+    region) for the main path's first QP batch."""
     from convex_mpc_tpu_torch.mpc import admm
     from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
@@ -701,7 +729,7 @@ def attractor_kkt(dev) -> torch.Tensor:
     qd = torch.as_tensor(kw["q_diag"], dtype=torch.float32, device=dev)
     data = E.cycle_update(dyn, gait_b, sched_b, state_b, qd, kw["n"], kw["mpc_dt"],
                           kw["r_value"], kw["mu_mpc"], kw["fz_min"])[0]
-    return admm.kkt_at_rho(data, torch.full((B_MAIN,), 1e-4, device=dev)).contiguous()
+    return admm.kkt_at_rho(data, torch.full((B_MAIN,), rho, device=dev)).contiguous()
 
 
 def healthy(state) -> bool:
@@ -852,12 +880,11 @@ def horizons_path(dev) -> None:
 
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
-    printed them. Every entry function of ``spd_inverse`` and of the two
-    cluster kernels must report its stack frame, spill nothing and keep no
-    array in local memory (a stack frame); all lines are printed first."""
+    printed them. Every entry function of every kernel must report its stack
+    frame, spill nothing and keep no array in local memory (a stack frame);
+    all lines are printed first."""
     import re
 
-    checked = ("spd_inverse", "admm_structured", "admm_dense")
     faults = []
     for name, log in logs.items():
         fn, entries, reported = None, set(), set()
@@ -870,12 +897,12 @@ def ptxas_report(logs: dict) -> None:
             if "stack frame" in line or "registers" in line:
                 print(f"  {name}: {fn}: {line.split('ptxas info    :')[-1].strip()}")
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-            if m and name in checked:
+            if m:
                 reported.add(fn)
                 if int(m.group(1)) or int(m.group(2)):
                     faults.append(f"{name}.cu: {fn} keeps {m.group(1)} bytes of stack frame, "
                                   f"{m.group(2)} bytes of spill stores")
-        if name in checked and (not entries or entries - reported):
+        if not entries or entries - reported:
             faults.append(f"{name}.cu: ptxas reported no stack frame for "
                           f"{sorted(entries - reported) or 'any entry function'}")
     if faults:

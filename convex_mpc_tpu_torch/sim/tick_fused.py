@@ -13,9 +13,11 @@ Two versions compute it:
   every tensor ``(small dims..., n)``. The JAX ``jax.linearize`` tangent is
   ``torch.func.jvp`` along ``_qdot_soa(q, dq)``, as ``dynamics.tick_model``
   does;
-- the CUDA kernel ``csrc/tick_window.cu``: one thread per scenario runs the
-  whole window from the batch-first tensors, with the tangent written out
-  as forward-mode arithmetic (design and bound in its header).
+- the CUDA kernel ``csrc/tick_window.cu``: a group of four lanes runs each
+  scenario's whole window from the batch-first tensors, lane l owning leg
+  l, the trunk sums reduced across the group by warp shuffles, with the
+  tangent written out as forward-mode arithmetic (design and bound in its
+  header; :func:`tick_window_shape` reads back its launch).
 
 :func:`run_ticks_fused` takes the batch-first inputs of ``engine._run_ticks``
 and returns its outputs. It runs the plain version
@@ -663,6 +665,30 @@ def _plain(carry_bf, batch_bf, cst, steps, sim_dt, alpha):
 
 
 _N_PTRS = 44
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("tick_window")
+        lib.tick_window_f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_float] * 7 + [ctypes.c_void_p]
+        lib.tick_window_f32.restype = ctypes.c_int
+        lib.tick_window_shape.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.tick_window_shape.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def tick_window_shape(B: int) -> tuple[int, int, int]:
+    """The launch ``csrc/tick_window.cu`` makes for B scenarios on the current
+    card: (threads per block, blocks, blocks resident per SM). A block is
+    one scenario's four lanes."""
+    threads, blocks, resident = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(_library().tick_window_shape(B, ctypes.byref(threads), ctypes.byref(blocks),
+                                                  ctypes.byref(resident)), "tick_window shape")
+    return threads.value, blocks.value, resident.value
 
 
 def _launch(carry_bf, batch_bf, cst, steps, sim_dt, alpha):
@@ -681,15 +707,11 @@ def _launch(carry_bf, batch_bf, cst, steps, sim_dt, alpha):
     tensors = [*carry_bf, *batch_bf, consts, *out_carry, *logs]
     assert len(tensors) == _N_PTRS
     ptrs = (ctypes.c_void_p * _N_PTRS)(*[x.data_ptr() for x in tensors])
-    fn = cuda_build.load("tick_window").tick_window_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), B, steps, f32(sim_dt), f32(alpha), f32(L.KP),
-             f32(L.KD), f32(L.GROUND_Z + 1e-3), f32(L.FOOT_RADIUS), f32(L.EARLY_CONTACT_FZ),
-             stream)
+    err = _library().tick_window_f32(
+        ctypes.cast(ptrs, ctypes.c_void_p), B, steps, f32(sim_dt), f32(alpha), f32(L.KP),
+        f32(L.KD), f32(L.GROUND_Z + 1e-3), f32(L.FOOT_RADIUS), f32(L.EARLY_CONTACT_FZ), stream)
     cuda_build.check(err, "run_ticks_fused")
     return out_carry, logs
 

@@ -1,14 +1,16 @@
-"""CUDA-event times of the solve kernels of one checkout of the port.
+"""CUDA-event times of the kernels of one checkout of the port.
 
-    python3 kernel_times.py [--root DIR] [--nb 64 96 128]
+    python3 kernel_times.py [--root DIR] [--nb 64 96 128] [--kernels spd admm dense tick]
 
 Imports ``convex_mpc_tpu_torch`` from DIR (default: the directory of this
 script), which builds its kernels under DIR, and times on one card, at
 B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
 and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
 25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and
-``admm_iterations`` at A (448, 192). Prints the card's name and power
-limit, then one JSON line per time (``spd_inverse``'s also with the host
+``admm_iterations`` at A (448, 192); the fused tick window
+(``run_ticks_fused``'s launch) at B = 512 for 20 ticks on
+``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
+the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
 microseconds per call of its wrapper, 100 calls queued without a wait), and
 one with ``spd_inverse``'s error on ``chip_smoke.attractor_kkt`` (cond
 ~1e4) against the f64 inverse, as a fraction of its largest entry, and its
@@ -29,6 +31,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 SPD_N = (192, 288, 384)  # spd_inverse at horizons 16, 24, 32
+KERNELS = ("spd", "admm", "dense", "tick")
 
 
 def _smoke():
@@ -56,6 +59,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--nb", type=int, nargs="+", default=[64, 96, 128])
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_times.py: no CUDA device")
@@ -65,28 +69,54 @@ def main() -> None:
 
     smoke, dev, B = _smoke(), torch.device("cuda"), 512
     print(smoke.card_identity())
+    if "spd" in a.kernels:
+        spd_times(a.root, smoke, spd_inverse, dev, B)
+    if "admm" in a.kernels:
+        for nb in a.nb:
+            args = smoke.structured_problem(B, nb, seed=11, dev=dev)
+            ms = smoke.cuda_ms(lambda: K.admm_iterations_structured(*args, iters=25))
+            print(json.dumps({"root": str(a.root), "kernel": "admm_iterations_structured",
+                              "B": B, "nb": nb, "iters": 25, "ms": ms}))
+            del args
+    if "dense" in a.kernels:
+        args = smoke.dense_problem(B, 64, seed=11, dev=dev)
+        ms = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
+        print(json.dumps({"root": str(a.root), "kernel": "admm_iterations", "B": B,
+                          "A": list(args[0].shape[1:]), "iters": 25, "ms": ms}))
+        del args
+    if "tick" in a.kernels:
+        tick_times(a.root, smoke, dev, B)
+
+
+def spd_times(root, smoke, spd_inverse, dev, B) -> None:
     for n in SPD_N:
         A = smoke.spd_batch(B, n, 7, dev)
         ms = smoke.cuda_ms(lambda: spd_inverse(A))
-        print(json.dumps({"root": str(a.root), "kernel": "spd_inverse", "B": B, "n": n,
+        print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": n,
                           "ms": ms, "host_us": host_us(lambda: spd_inverse(A))}))
         del A
     kkt = smoke.attractor_kkt(dev)
     k = smoke.spd_kkt_errors(kkt)
-    print(json.dumps({"root": str(a.root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
+    print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
                       "case": "attractor-rho KKT", "err_of_scale": k["e_kernel"] / k["kscale"],
                       "resid": k["r_kernel"]}))
-    del kkt
-    for nb in a.nb:
-        args = smoke.structured_problem(B, nb, seed=11, dev=dev)
-        ms = smoke.cuda_ms(lambda: K.admm_iterations_structured(*args, iters=25))
-        print(json.dumps({"root": str(a.root), "kernel": "admm_iterations_structured",
-                          "B": B, "nb": nb, "iters": 25, "ms": ms}))
-        del args
-    args = smoke.dense_problem(B, 64, seed=11, dev=dev)
-    ms = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
-    print(json.dumps({"root": str(a.root), "kernel": "admm_iterations", "B": B,
-                      "A": list(args[0].shape[1:]), "iters": 25, "ms": ms}))
+
+
+def tick_times(root, smoke, dev, B, steps: int = 20) -> None:
+    """The fused tick window's kernel alone (``tick_fused._launch``, as
+    ``chip_smoke.check_tick_window`` times it) and the launch it makes, where
+    the checkout reports one."""
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.sim import tick_fused as TF
+
+    dyn, gait, contact, cmd, traj, u0, plant, leg, yc, yp, vf, t0 = smoke.tick_battery(B, 13, dev)
+    carry, batch = TF._inputs(gait, contact, cmd, traj, u0, plant, leg, yc, yp, vf, t0)
+    cst = TF.make_consts(dyn, 45.0)
+    alpha = E._filter_alpha(30.0, 1e-3)
+    ms = smoke.cuda_ms(lambda: TF._launch(carry, batch, cst, steps, 1e-3, alpha))
+    shape = TF.tick_window_shape(B) if hasattr(TF, "tick_window_shape") else None
+    print(json.dumps({"root": str(root), "kernel": "run_ticks_fused", "B": B, "steps": steps,
+                      "ms": ms, "launch": shape}))
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ inverse at most twice the plain version's; the structured ADMM chunk
 bitwise equal to its plain version (nb = 64, 96, 128: horizons 16, 24, 32). As in
 tests/test_torch_tick_fused.py and tests/test_torch_fixed.py: the fused tick
 window within 5e-3 per channel over 20 ticks and 2e-4 over one tick, masks
-equal (the tick battery comes from ``chip_smoke.tick_battery``); the dense
+equal (the tick battery comes from ``chip_smoke.tick_battery``, also on a
+duty = 1 gait; at ragged B, up to ``chip_smoke.MAX_FLIPS`` scenarios that
+took another contact branch within rounding are excused, as in
+``chip_smoke.py``), and its launch one block of four lanes per scenario; the dense
 ADMM iterations within rtol and atol 2e-4 (``chip_smoke.dense_problem``).
 The horizon-24 production cycle at B = 8 agrees with the same cycle on the
 CPU within 2.0 N of applied force.
@@ -35,8 +38,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    attractor_kkt, dense_problem, spd_batch, spd_kkt_errors, spd_nonspd, start_batch,
-    structured_problem, tick_battery, window_misses)
+    MAX_FLIPS, attractor_kkt, dense_problem, rounding_flips, spd_batch, spd_kkt_errors,
+    spd_nonspd, start_batch, structured_problem, tick_battery, window_misses)
 
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
@@ -123,17 +126,48 @@ def test_admm_kernel_matches_plain(iters, nb):
         assert torch.equal(a, b), (a - b).abs().max().item()
 
 
-@pytest.mark.parametrize("B, steps, rel", [(5, 20, 5e-3), (64, 20, 5e-3), (64, 1, 2e-4)])
-def test_tick_window_kernel_matches_plain(B, steps, rel):
-    _need_cuda()
-    args = tick_battery(B, seed=3, dev=torch.device("cuda"))
+def _tick_window_pair(B, steps, seed, duty=0.6):
+    """The kernel's window (one launch) and the plain version's on one battery."""
+    args = tick_battery(B, seed=seed, dev=torch.device("cuda"), duty=duty)
     before = TTF.run_ticks_fused.launches
     out = TTF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
     torch.cuda.synchronize()
     assert TTF.run_ticks_fused.launches == before + 1
-    ref = TTF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)
+    return args, out, TTF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)
+
+
+@pytest.mark.parametrize("B, steps, rel, duty", [(5, 20, 5e-3, 0.6), (64, 20, 5e-3, 0.6),
+                                                 (64, 1, 2e-4, 0.6), (64, 20, 5e-3, 1.0)])
+def test_tick_window_kernel_matches_plain(B, steps, rel, duty):
+    _need_cuda()
+    _, out, ref = _tick_window_pair(B, steps, 3, duty)
     miss, errs, _ = window_misses(out, ref, rel)
     assert not miss.any(), errs
+
+
+@pytest.mark.parametrize("B", [13, 517])
+def test_tick_window_kernel_ragged_batch(B):
+    """An odd B, and one past the main path's 512. A block is one scenario,
+    so no block is partly filled at any B: these hold the lane-group
+    indexing at counts other than the main path's."""
+    _need_cuda()
+    args, out, ref = _tick_window_pair(B, 20, 2)
+    miss, errs, _ = window_misses(out, ref, 5e-3)
+    excused, margins = rounding_flips(out, ref, args[2])
+    assert len(margins) <= MAX_FLIPS, margins
+    assert not (miss & ~excused).any(), errs
+
+
+def test_tick_window_shape():
+    """A block of four lanes per scenario; on the H100's 132 SMs B = 512 fits
+    in one resident wave."""
+    _need_cuda()
+    for B in (1, 5, 13, 512, 517, 8192):
+        threads, blocks, resident = TTF.tick_window_shape(B)
+        assert (threads, blocks) == (4, B) and resident >= 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms >= 132:
+        assert sms * TTF.tick_window_shape(512)[2] >= 512
 
 
 @pytest.mark.parametrize("iters", [1, 25, 50])

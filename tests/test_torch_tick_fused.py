@@ -10,7 +10,8 @@ to both packages. Bars:
 - ``run_ticks_fused`` (CPU tensors: the plain version) against
   ``jax.vmap(engine._run_ticks)``: 5e-3 over 20 ticks and 2e-4 over one
   tick, per-channel scales, integer fields exactly (the JAX suite's bars,
-  tests/test_tick_fused.py);
+  tests/test_tick_fused.py); the same at duty = 1 (no leg swings, a zero
+  swing time), also against the port's own ``engine._run_ticks``;
 - the slice as a whole: the port's ``mpc_cycle_batch(use_fused_ticks=True)``
   against JAX ``mpc_cycle_batch(use_fused_ticks=True)`` (its Pallas kernel
   run by the interpreter) at B = 4 for two cycles: plant q and dq within
@@ -81,7 +82,7 @@ _jax_window_jit = jax.jit(_jax_window, static_argnames=("steps",))
                                                  (4, 2, 1, 2e-4)],
                          ids=["20-ticks", "20-ticks-seed1", "one-tick"])
 def test_run_ticks_fused_matches_jax(B, seed, steps, rel):
-    """B = 5 is the ragged edge of the card's 32-thread blocks."""
+    """Two seeds of a 20-tick window at B = 5, and one tick at B = 4."""
     args = _battery(B=B, seed=seed)
     before = TTF.run_ticks_fused.launches
     _assert_window(_jax_window_jit(args, steps=steps), _port_fused(args, steps), rel)
@@ -98,6 +99,22 @@ def test_fused_window_matches_port_tick_loop():
     _assert_window(to_np(loop), fused, 5e-3)
     assert tuple(fused[1].force.shape) == (3, 20, 4, 3)
     assert fused[1].contact_mask.dtype == torch.int32
+
+
+def test_fused_window_duty_one():
+    """A duty = 1 gait: no leg ever swings and the swing time is 0, so the
+    early-contact phase t_since / t_swing is inf or NaN (port tick_fused.py
+    and csrc/tick_window.cu divide by the raw swing time, as JAX
+    leg.compute_torques does; JAX tick_fused.py clamps it). It only gates
+    swing legs, so the fused window matches both tick loops."""
+    B = 4
+    args = list(_battery(B=B, seed=6))
+    args[1] = JE.broadcast_batch(JG.make_gait_params(3.0, 1.0), B)
+    fused = _port_fused(args, 20)
+    assert (fused[1].contact_mask == 1).all()
+    _assert_window(_jax_window_jit(tuple(args), steps=20), fused, 5e-3)
+    to_np = lambda tree: jax.tree.map(lambda x: x.numpy(), tree)  # noqa: E731
+    _assert_window(to_np(_port_window(args, 20)), fused, 5e-3)
 
 
 def test_run_ticks_fused_refuses_cpu_launch():

@@ -1,15 +1,18 @@
 """Where the time of the port's production cycle goes, on one CUDA card.
 
-Runs ``mpc_cycle_batch`` (``engine_kwargs_batched(DEFAULT_CONFIG)``) from
+Runs ``mpc_cycle_batch`` (``engine_kwargs_batched(DEFAULT_CONFIG)``; with
+``--fused``, ``use_fused_ticks=True``: the 20 ticks as one fused-window
+kernel launch) from
 bench.py's start state (``chip_smoke.start_batch``, the state the smoke run
 times) at ``--batch`` scenarios, settles ``--settle``
 cycles, then traces ``--cycles`` cycles with ``torch.profiler`` (CPU and
-CUDA activities) and prints: the wall time per cycle, the device-busy
+CUDA activities) and prints: the card's name and power limit, the wall
+time per cycle, the device-busy
 share (the union of kernel and copy intervals over the traced wall time),
 operator counts per cycle, and the top operators by host time and by
 device time.
 
-    python tools/torch_cycle_profile.py --batch 512 --cycles 2
+    python tools/torch_cycle_profile.py --batch 512 --cycles 2 [--fused]
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from chip_smoke import start_batch  # noqa: E402
+from chip_smoke import card_identity, start_batch  # noqa: E402
 from convex_mpc_tpu_torch.sim import engine as E  # noqa: E402
 from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched  # noqa: E402
 
@@ -51,12 +54,14 @@ def main() -> None:
     ap.add_argument("--settle", type=int, default=8)
     ap.add_argument("--cycles", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--fused", action="store_true",
+                    help="use_fused_ticks=True: the apply stage is the fused tick window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
     B = args.batch
-    kw = engine_kwargs_batched(DEFAULT_CONFIG)
+    kw = dict(engine_kwargs_batched(DEFAULT_CONFIG), use_fused_ticks=args.fused)
     dyn, gait_b, contact_b, sched_b, state = start_batch(B, dev)
     for _ in range(args.settle):
         state, _ = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state, **kw)
@@ -74,7 +79,7 @@ def main() -> None:
     busy = _busy_ms(dev_events)
     n_cpu_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                     and e.name.startswith("aten::"))
-    print(f"{torch.cuda.get_device_name(0)}; B={B}; {args.cycles} traced cycles")
+    print(f"{card_identity()}; B={B}; use_fused_ticks={args.fused}; {args.cycles} traced cycles")
     print(json.dumps({
         "cycle_ms": wall_ms / args.cycles,
         "device_busy_ms_per_cycle": busy / args.cycles,
