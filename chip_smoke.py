@@ -22,13 +22,19 @@ Phases (any failure exits non-zero and prints no result line):
    iterations; the fused tick window (its launch shape printed) at B = 512
    for 20 ticks (5e-3 per channel) and one tick (2e-4), at ragged B = 5,
    13 and 517 (one block per scenario, so no block is partly filled) and at
-   B = 512 on a duty = 1 gait
+   B = 512 on a duty = 1 gait and on a heterogeneous battery (each
+   scenario's gait from ``scenarios.gait_sweep``, 16 frequencies x 32
+   duties, and its contact from ``scenarios.friction_randomization``)
    (no leg swings; at most ``MAX_FLIPS`` scenarios that took another
    contact branch within ``FLIP_MARGIN`` of its threshold are excused from
    the bar), with the eager ``engine._run_ticks`` window as its yardstick;
    the dense ADMM
-   iterations at B = 512, A (448, 192), for 25 and 50 iterations (rtol and
-   atol 2e-4) in clusters of 8 CTAs. Before them, each kernel's
+   iterations at B = 512, A (448, 192) (the condensed QP; rtol and atol
+   2e-4) and A (640, 384) (the full form's QP of the main path's start
+   batch; against the f64 iterations, within twice the plain version's
+   error: ``dense_f64_errors``), for 25 and 50 iterations in clusters of 8
+   CTAs, each shape's layout and resident clusters printed, and A (960,
+   576) (the full form at horizon 24) must raise. Before them, each kernel's
    ``ptxas -v`` lines; every kernel must show no stack frame and no
    spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
@@ -47,7 +53,18 @@ Phases (any failure exits non-zero and prints no result line):
    ``mpc_dt`` = gait period / horizon, 4 settle cycles and a 4-cycle
    window with the counters set to 0 just before it (both solve kernels
    must launch), then one B = 8 cycle on the card and on the CPU within
-   2.0 N.
+   2.0 N;
+7. the full QP form: ``mpc_cycle_fixed(formulation="full",
+   solver_iters=150)`` at B = 512 for a 4-cycle window, its counters set
+   to 0 (kernel 4 must launch, on A (640, 384)), then one B = 8 cycle on
+   the card and on the CPU within 2.0 N;
+8. the scenario batches through ``scenarios.simulate_batch``
+   (``SCENARIO_BATCHES``): ``velocity_sweep`` at B = 1,024 on the legacy
+   path (300 iterations), ``friction_randomization`` at B = 512 on the
+   production path with the fused tick window, ``gait_sweep`` (16 x 32) at
+   B = 512 on the production path; settle cycles, then a timed window with
+   the counters set to 0 (finite, 0.1 < z < 0.6, each kernel of its path
+   launched), then one B = 8 cycle on the card and on the CPU within 2.0 N.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -436,6 +453,20 @@ def tick_battery(B: int, seed: int, dev, duty: float = 0.6):
             f(rng.normal(0, 0.1, (B, 6))), f(rng.uniform(0.1, 0.4, B)))
 
 
+def hetero_battery(seed: int, dev):
+    """``tick_battery(B_MAIN, seed)`` with every scenario's gait and contact
+    its own: the gait of ``scenarios.gait_sweep`` over 16 frequencies in
+    2.5-3.5 Hz x 32 duties in 0.5-0.7 and the contact of
+    ``scenarios.friction_randomization`` (mu, kn per scenario)."""
+    from convex_mpc_tpu_torch.sim import scenarios as S
+
+    args = tick_battery(B_MAIN, seed, dev)
+    gait = S.gait_sweep(args[0], freqs=np.linspace(2.5, 3.5, 16),
+                        duties=np.linspace(0.5, 0.7, 32)).gait
+    contact = S.friction_randomization(args[0], B_MAIN).contact
+    return (args[0], gait, contact) + args[3:]
+
+
 def _window_fields(res) -> dict:
     (plant, leg, yc, yp, vf, t), ticks = res
     d = {"q": plant.q, "dq": plant.dq, "yaw_cont": yc, "yaw_prev": yp, "vel_filt": vf, "t": t}
@@ -565,10 +596,12 @@ def check_tick_window(dev) -> dict:
         threads, blocks, resident = TF.tick_window_shape(B)
         print(f"tick window launch B={B}: {blocks} blocks of {threads} threads "
               f"(one scenario a block), {resident} blocks resident per SM")
+    # duty "sweep": the heterogeneous battery (per-scenario gait and contact)
     for B, steps, rel, seed, duty in [(B_MAIN, 20, 5e-3, 13, 0.6), (B_MAIN, 1, 2e-4, 14, 0.6),
                                       (5, 20, 5e-3, 1, 0.6), (13, 20, 5e-3, 2, 0.6),
-                                      (517, 20, 5e-3, 3, 0.6), (B_MAIN, 20, 5e-3, 15, 1.0)]:
-        args = tick_battery(B, seed, dev, duty)
+                                      (517, 20, 5e-3, 3, 0.6), (B_MAIN, 20, 5e-3, 15, 1.0),
+                                      (B_MAIN, 20, 5e-3, 16, "sweep")]:
+        args = hetero_battery(seed, dev) if duty == "sweep" else tick_battery(B, seed, dev, duty)
         out = TF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
         torch.cuda.synchronize()
         ref = TF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)  # on the card
@@ -650,30 +683,113 @@ def admm_dense_bmm(A, Minv, q, l, u, rho, x, z, y, iters, sigma=1e-6, alpha=1.6)
     return x, z, y
 
 
-def check_admm_dense(dev) -> dict:
-    """The dense iterations at B_MAIN, A (448, 192), within rtol and atol 2e-4
-    of the plain version after 25 and 50 iterations, and their times."""
+def full_form_problem(B: int, dev, rho: float = 0.1):
+    """The dense iterations' operands on the full-form QP (A (640, 384)) of
+    the main path's start batch, as the legacy solver's first segment hands
+    them to the kernel: Ruiz-scaled A, q, l, u, the KKT inverse at ``rho``
+    (equality rows weighted 1e3), and the cold start."""
+    from convex_mpc_tpu_torch.control import reference as R
+    from convex_mpc_tpu_torch.mpc import admm, qp
+    from convex_mpc_tpu_torch.sim import engine as E
+
+    dyn, gait_b, _, sched_b, state = start_batch(B, dev)
+    obs = E.observe(dyn, state.plant, state.yaw_cont, state.yaw_prev, state.vel_filt)[0]
+    traj = R.generate(state.refgen, gait_b, obs, E.lookup_command(sched_b, state.t), state.t,
+                      (1.0 / 3.0) / HORIZON, HORIZON)[0]
+    p0 = traj.x0[:, 0:3]
+    x0_s = torch.cat([torch.zeros_like(p0), traj.x0[:, 3:]], dim=-1)
+    x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] - p0[:, None, :], traj.x_ref[:, :, 3:]], dim=-1)
+    data = qp.build_qp(traj.dyn, x0_s, x_ref_s, traj.contact,
+                       (1, 1, 50, 10, 20, 1, 2, 2, 1, 1, 1, 1), 1e-5, 0.8, 10.0)
+    s = admm.ruiz_equilibrate(data, admm.SCALING_ITERS)
+    w = torch.where((data.u - data.l) < 1e-9, admm.EQ_SCALE, 1.0)
+    rho_vec = rho * w
+    K = torch.matmul(s.A.transpose(1, 2), s.A * rho_vec[:, :, None])
+    Minv = admm._segment_inverse(torch.diag_embed(s.p_diag + admm.SIGMA) + K)
+    n, m = data.q.shape[-1], data.l.shape[-1]
+    zero = lambda k: torch.zeros((B, k), device=dev)  # noqa: E731
+    return [a.contiguous() for a in (s.A, Minv, s.q, s.l, s.u, rho_vec, zero(n), zero(m), zero(m))]
+
+
+def check_admm_dense(dev) -> list:
+    """The dense iterations at B_MAIN, on the legacy condensed shape A (448,
+    192) and on the full form's A (640, 384), within rtol and atol 2e-4 of
+    the plain version after 25 and 50 iterations, and their times; the full
+    form at horizon 24, A (960, 576), must raise. Returns a kernel-table row
+    for each shape."""
+    rows = [dense_shape_row(dev, "condensed", dense_problem(B_MAIN, 64, seed=11, dev=dev)),
+            dense_shape_row(dev, "full form", full_form_problem(B_MAIN, dev))]
+    torch.cuda.empty_cache()
     from convex_mpc_tpu_torch.mpc import kernels as K
 
-    B, nb = B_MAIN, 64
-    args = dense_problem(B, nb, seed=11, dev=dev)
-    m, n = args[0].shape[1], args[0].shape[2]
-    csize, resident = K.dense_cluster_shape(m, n)
+    m, n = 960, 576
+    csize, resident, layout, smem = K.dense_cluster_shape(m, n)
+    args = [torch.zeros(s, device=dev) for s in
+            [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
+    try:
+        K.admm_iterations(*args, iters=1)
+    except RuntimeError as exc:
+        print(f"admm_iterations (dense) A={(m, n)}: {resident} clusters resident, layout "
+              f"{layout}; the wrapper raises: {exc}")
+    else:
+        fail(f"admm_iterations at A {(m, n)} launched: no layout should hold it")
+    if resident or layout is not None:
+        fail(f"admm_iterations at A {(m, n)}: a layout ({layout}) reports {resident} clusters")
+    return rows
+
+
+def dense_f64_errors(out, ref, args, iters: int) -> dict:
+    """The kernel's and the plain version's max errors against the same
+    iterations in f64, per output (x, z, y), and ``within_bar``: the kernel
+    finite and within twice the plain version's error plus 1e-5 x the f64
+    output's largest entry. The full form's iterations amplify rounding
+    (equality rows carry rho x 1e3), so that two f32 orders of the same sums
+    differ by more than 2e-4 entry by entry: the plain version with A's
+    columns permuted misses that bar by itself
+    (tests/test_torch_qp.py::test_full_form_iterations_f32_order)."""
+    from convex_mpc_tpu_torch.mpc import kernels as K
+
+    truth = K.admm_iterations_plain(*[a.double() for a in args], iters=iters)
+    e_k = [(a.double() - t).abs().max().item() for a, t in zip(out, truth)]
+    e_p = [(b.double() - t).abs().max().item() for b, t in zip(ref, truth)]
+    scale = [t.abs().max().item() for t in truth]
+    ok = all(torch.isfinite(a).all() for a in out) and all(
+        ek <= 2 * ep + 1e-5 * sc for ek, ep, sc in zip(e_k, e_p, scale))
+    return dict(e_kernel=e_k, e_plain=e_p, scale=scale, within_bar=bool(ok))
+
+
+def dense_shape_row(dev, form: str, args) -> dict:
+    """One shape of the dense iterations: its launch, the check against the
+    plain version, and the times of the kernel, the plain version and
+    torch.bmm iterations, beside the bound."""
+    from convex_mpc_tpu_torch.mpc import kernels as K
+
+    B, m, n = args[0].shape
+    csize, resident, layout, smem = K.dense_cluster_shape(m, n)
     if resident < 1:
         fail(f"admm_iterations: no cluster of {csize} CTAs holds A {(m, n)} on the card")
-    print(f"admm_iterations (dense) A={(m, n)}: clusters of {csize} CTAs, {resident} resident "
-          f"at once, {B / resident:.2f} waves at B={B}")
+    print(f"admm_iterations (dense, {form}) A={(m, n)}: clusters of {csize} CTAs, {layout} "
+          f"layout, {smem} B of shared memory per CTA, {resident} resident at once, "
+          f"{B / resident:.2f} waves at B={B}")
     worst = 0.0
     for iters in (25, 50):
         out = K.admm_iterations(*args, iters=iters)
         torch.cuda.synchronize()
         ref = K.admm_iterations_plain(*args, iters=iters)
         errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
-        ok = all(torch.allclose(a, b, atol=2e-4, rtol=2e-4) for a, b in zip(out, ref))
+        outside = [int((~torch.isclose(a, b, atol=2e-4, rtol=2e-4)).sum()) for a, b in zip(out, ref)]
         print(f"admm_iterations (dense) B={B} A={(m, n)} iters={iters}: max|k-plain| x/z/y = "
-              f"{errs} (bar atol 2e-4 rtol 2e-4)")
+              f"{errs}, entries outside atol 2e-4 rtol 2e-4: {outside}")
+        if form == "condensed":
+            ok = not any(outside)
+        else:
+            d = dense_f64_errors(out, ref, args, iters)
+            ok = d["within_bar"]
+            print(f"  against the f64 iterations, x/z/y: kernel {d['e_kernel']}, plain "
+                  f"{d['e_plain']} (bar twice the plain + 1e-5 x scale {d['scale']})")
         if not (ok and all(torch.isfinite(a).all() for a in out)):
-            fail(f"admm_iterations disagrees with its plain version at {iters} iterations")
+            fail(f"admm_iterations disagrees with its plain version at {iters} iterations "
+                 f"(A {(m, n)})")
         worst = max(worst, *errs)
     iters = 25
     ms = cuda_ms(lambda: K.admm_iterations(*args, iters=iters))
@@ -684,13 +800,13 @@ def check_admm_dense(dev) -> dict:
     # per iteration: A't and A xt 2mn each, Minv rhs 2n^2, vector updates ~12m + 6n
     flops = B * iters * (4 * m * n + 2 * n * n + 12 * m + 6 * n)
     b_ms, b_by = bound(in_bytes + out_bytes, flops)
-    print(f"admm_iterations (dense) times (25 iters): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(name="admm_iterations", route="cuda",
-                source="convex_mpc_tpu_torch/csrc/admm_dense.cu",
+    print(f"admm_iterations (dense, {form}) A={(m, n)} times (25 iters): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    name = "admm_iterations" if form == "condensed" else f"admm_iterations ({form}, A {m}x{n})"
+    return dict(name=name, route="cuda", source="convex_mpc_tpu_torch/csrc/admm_dense.cu",
                 replaces="convex_mpc_tpu/mpc/kernels.py:186",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, shape=[m, n])
 
 
 # ---------------------------------------------------------------------------
@@ -878,6 +994,109 @@ def horizons_path(dev) -> None:
                     (gait_b, contact_b, sched_b, state), 1, kw)
 
 
+def full_form_path(dev) -> dict:
+    """Phase 7: the legacy cycle on the full-form QP (``formulation="full"``,
+    A (640, 384) at horizon 16): one warm-up cycle, a FIXED_WINDOW window
+    with the counters set to 0 (kernel 4 must launch, on the full form's
+    shapes), then one B = 8 cycle on the card and on the CPU within 2.0 N."""
+    from convex_mpc_tpu_torch.mpc import qp
+    from convex_mpc_tpu_torch.sim import engine as E
+
+    kw = dict(solver_iters=FIXED_ITERS, formulation="full")
+    dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev)
+    full = E.broadcast_batch(E.init_state(dyn, n=HORIZON, formulation="full").solver, B_MAIN)
+    state = state._replace(solver=full)
+    args = (dyn, gait_b, contact_b, sched_b)
+    E.mpc_cycle_fixed(*args, state, **kw)  # first use: allocator and library warm-up
+    out_state, res = drive("full-form path", E.mpc_cycle_fixed, args, state, FIXED_WINDOW, kw)
+    shapes = (tuple(out_state.solver.x.shape), tuple(out_state.solver.z.shape))
+    if res["launches"]["admm_iterations"] <= 0 or shapes != (
+            (B_MAIN, qp.n_vars(HORIZON)), (B_MAIN, qp.n_rows(HORIZON))):
+        fail(f"full-form path: admm_iterations launched {res['launches']['admm_iterations']} "
+             f"times on solver state {shapes}")
+    card_vs_cpu("full-form path", E.mpc_cycle_fixed, dyn, (gait_b, contact_b, sched_b, state),
+                1, kw)
+    return res
+
+
+# phase 8: the scenario batches (BASELINE.json configs 3-5): (name, size,
+# the sim/scenarios.py function that makes it, simulate_batch keyword arguments,
+# settle cycles, window cycles)
+SCENARIO_BATCHES = (
+    ("velocity_sweep", 1024, lambda S, dyn, B: S.velocity_sweep(dyn, B, seed=0),
+     dict(adaptive=False, solver_iters=300), 2, 4),
+    ("friction_randomization", 512, lambda S, dyn, B: S.friction_randomization(dyn, B),
+     dict(adaptive=True, solver_iters=1000, use_fused_ticks=True), 4, 8),
+    ("gait_sweep", 512, lambda S, dyn, B: S.gait_sweep(
+        dyn, freqs=np.linspace(2.5, 3.5, 16), duties=np.linspace(0.5, 0.7, 32)),
+     dict(adaptive=True, solver_iters=1000), 4, 4),
+)
+
+
+def scenario_paths(dev) -> dict:
+    """Phase 8: each scenario batch through ``scenarios.simulate_batch``: its
+    settle cycles, then a timed window with the counters set to 0 just
+    before and read just after (finite, 0.1 < z < 0.6); solves/s, stage
+    times (adaptive path), iterations, the share upright and each kernel's
+    launches; then one cycle of its first B_SMALL scenarios on the card and
+    on the CPU within 2.0 N."""
+    from convex_mpc_tpu_torch.models import dynamics as D
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.sim import scenarios as S
+
+    dyn = D.build_dyn(device=dev)
+    kernels = _all_kernels()
+    out = {}
+    for name, B, build, kw, settle, window in SCENARIO_BATCHES:
+        batch = build(S, dyn, B)
+        if batch.size != B:
+            fail(f"{name}: built {batch.size} scenarios, not {B}")
+        t0 = time.perf_counter()
+        batch, _, _ = S.simulate_batch(dyn, batch, settle, **kw)
+        torch.cuda.synchronize()
+        print(f"{name}: {settle} settle cycles at B={B} in {time.perf_counter() - t0:.2f} s")
+        settled = batch
+        prof = {} if kw["adaptive"] else None
+        wkw = dict(kw, profile=prof) if prof is not None else kw
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        batch, metrics, logs = S.simulate_batch(dyn, batch, window, collect_logs=True, **wkw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        it = logs.solver_iters.float().cpu().numpy()
+        res = {"batch": B, "window_cycles": window, "solves_per_s": B * window / wall,
+               "cycle_ms": wall / window * 1e3, "iters_mean": float(it.mean()),
+               "iters_p99": float(np.percentile(it, 99)),
+               "upright_share": float(metrics["upright"].float().mean()),
+               "height_mean": float(metrics["height"].mean()),
+               "vx_err_mean": float(metrics["vx_err"].mean()),
+               "wz_err_mean": float(metrics["wz_err"].mean())}
+        if prof:
+            res.update({f"{k}_ms": prof[k] / window * 1e3 for k in ("update", "solve", "apply")})
+        res["launches_per_cycle"] = {n: k.launches / window for n, k in kernels.items()}
+        res["healthy"] = healthy(batch.state)
+        print(f"{name} window: " + json.dumps(res))
+        if not res["healthy"]:
+            fail(f"{name}: the batch is not healthy after the window (non-finite or z outside "
+                 f"(0.1, 0.6))")
+        need = ["admm_iterations"] if not kw["adaptive"] else (
+            ["spd_inverse", "admm_iterations_structured"]
+            + (["run_ticks_fused"] if kw.get("use_fused_ticks") else []))
+        if min(kernels[n].launches for n in need) <= 0:
+            fail(f"{name}: a kernel of its path was never launched: "
+                 f"{ {n: k.launches for n, k in kernels.items()} }")
+        res["launches"] = {n: k.launches for n, k in kernels.items()}
+        cycle = E.mpc_cycle_batch if kw["adaptive"] else E.mpc_cycle_fixed
+        ckw = {k: v for k, v in kw.items() if k != "adaptive"}
+        card_vs_cpu(f"{name} batch", cycle, dyn,
+                    (settled.gait, settled.contact, settled.sched, settled.state), 1, ckw)
+        out[name] = res
+        del batch, settled, logs
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
     printed them. Every entry function of every kernel must report its stack
@@ -933,21 +1152,27 @@ def main() -> None:
 
     kkt = attractor_kkt(dev)
     kernels = [check_spd_inverse(kkt), check_admm_chunk(dev), check_tick_window(dev),
-               check_admm_dense(dev)]
+               *check_admm_dense(dev)]
     del kkt
     torch.cuda.empty_cache()
 
     paths = main_path(dev)
     paths["fixed"] = fixed_path(dev)
     horizons_path(dev)
-    # each kernel's launches from the run of its own path
+    paths["full"] = full_form_path(dev)
+    torch.cuda.empty_cache()
+    scenario_paths(dev)
+    # each kernel's launches from the run of its own path: kernel 4 has a row
+    # for the condensed shape (legacy path) and one for the full form's
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
             "run_ticks_fused": "fused", "admm_iterations": "fixed"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        k["launches"] = paths[runs[k["name"]]]["launches"][k["name"]]
-    kernels = [{key: k[key] for key in order} for k in kernels]
+        run = runs.get(k["name"], "full")
+        k["launches"] = paths[run]["launches"][k["name"].split(" ")[0]]
+    kernels = [{key: k[key] for key in order + (("shape",) if "shape" in k else ())}
+               for k in kernels]
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

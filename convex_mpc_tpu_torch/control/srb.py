@@ -33,6 +33,21 @@ def continuous_A(yaw_avg: torch.Tensor) -> torch.Tensor:
     return A
 
 
+def continuous_B(r_feet_world: torch.Tensor, mass, inertia_world: torch.Tensor) -> torch.Tensor:
+    """Continuous-time input map Bc for one horizon step (B, 12, 12).
+
+    r_feet_world (B, 4, 3) COM->foot levers in world axes, order [FL, FR,
+    RL, RR]; mass (B,) or (); inertia_world (B, 3, 3).
+    """
+    B = r_feet_world.shape[0]
+    dtype, device = r_feet_world.dtype, r_feet_world.device
+    I_inv = torch.linalg.inv(inertia_world)
+    ang = torch.einsum("bij,bfjk->bifk", I_inv, hat(r_feet_world)).reshape(B, 3, NU)
+    m = torch.as_tensor(mass, dtype=dtype, device=device).reshape(-1, 1, 1)
+    lin = (torch.eye(3, dtype=dtype, device=device) / m).repeat(1, 1, 4).expand(B, 3, NU)
+    return torch.cat([torch.zeros((B, 6, NU), dtype=dtype, device=device), lin, ang], dim=1)
+
+
 def continuous_g(B: int, dtype, device) -> torch.Tensor:
     g = torch.zeros((B, NX), dtype=dtype, device=device)
     g[:, 8] = -GRAVITY
@@ -64,3 +79,13 @@ def discretize(yaw_avg, r_feet_world, mass, inertia_world, dt) -> SrbDynamics:
     Bd = torch.einsum("bij,bnjk->bnik", E, Bc)
     gd = torch.einsum("bij,bj->bi", E, continuous_g(B, dtype, device))
     return SrbDynamics(Ad=Ad, Bd=Bd, gd=gd)
+
+
+def rollout(dyn: SrbDynamics, x0: torch.Tensor, u_seq: torch.Tensor) -> torch.Tensor:
+    """Open-loop rollout x_{k+1} = Ad x_k + Bd_k u_k + gd from x0 (B, 12)
+    under u_seq (B, N, 12) -> (B, N + 1, 12), x0 first."""
+    xs = [x0]
+    for k in range(u_seq.shape[1]):
+        xs.append(torch.einsum("bij,bj->bi", dyn.Ad, xs[-1])
+                  + torch.einsum("bij,bj->bi", dyn.Bd[:, k], u_seq[:, k]) + dyn.gd)
+    return torch.stack(xs, dim=1)

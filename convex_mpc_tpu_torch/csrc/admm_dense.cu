@@ -56,6 +56,22 @@
 // 1.5176 ms in clusters of 8 and 1.5755 ms in clusters of 4, against
 // 5.3118 ms for torch.bmm and the 0.0811 ms bound. So this file launches
 // clusters of 8 only, and raises where A's and Minv's rows do not fit.
+//
+// Two layouts of the cluster of 8, chosen per shape by the launcher (the
+// first whose CTA fits the card's shared memory):
+//  - broadcast (above): every CTA receives every CTA's whole partial A_r' t,
+//    2 x 8 x n floats of push slots, and sums all n columns itself;
+//  - gather: CTA c owns columns [c s, (c + 1) s), s = ceil(n / 8), and
+//    receives only those columns of each CTA's partial (2 x 8 x s floats of
+//    slots); it sums them in rank order, adds sigma x - q, and sends its
+//    columns of rhs into every CTA's whole rhs (2 x n floats, a third
+//    mbarrier pair): one more wait per iteration, 12 n fewer floats.
+// The full-form QP (formulation="full", nz = 24 N, m = 40 N) at horizon 16
+// is A (640, 384): broadcast needs 80 + 48 rows of 384 and 25 x 384 +
+// 480 floats more, 238,464 B, above the 232,448 B one CTA may have; gather
+// needs 218,496 B, one CTA per SM. Horizons 24 and 32 (A (960, 576), (1280,
+// 768)) fit neither, and the launcher returns cudaErrorInvalidConfiguration.
+// A (448, 192) stays on broadcast (86,592 B, two CTAs per SM).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -98,13 +114,24 @@ __host__ __device__ __forceinline__ Split split(int m, int n) {
   return s;
 }
 
+// columns of rhs each CTA owns in the gather layout
+__host__ __device__ __forceinline__ int segment(int n) { return (n + kCluster - 1) / kCluster; }
+
+// Shared floats per CTA: rows of A and Minv, the row-group partials, the
+// push slots (broadcast: 8 x n per buffer; gather: 8 x segment per buffer),
+// q and x, rhs (broadcast: n, formed locally; gather: 2 x n, gathered), xt
+// (2 x n), and six per-row vectors.
+template <bool kGather>
 __host__ __device__ __forceinline__ size_t smem_floats(int m, int n) {
   const Split s = split(m, n);
-  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n + 2 * (size_t)kCluster * n +
-         5 * (size_t)n + 6 * (size_t)s.mr;
+  const size_t slots = 2 * (size_t)kCluster * (kGather ? segment(n) : n);
+  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n + slots +
+         (kGather ? 6 : 5) * (size_t)n + 6 * (size_t)s.mr;
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// kGather: the gather layout (header), one CTA per SM; else broadcast, two.
+template <bool kGather>
+__global__ void __launch_bounds__(kThreads, kGather ? 1 : kMinBlocks)
 admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   const float* __restrict__ q, const float* __restrict__ l,
                   const float* __restrict__ u, const float* __restrict__ rho,
@@ -114,8 +141,9 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   float sigma, float alpha, float oma) {
   extern __shared__ __align__(16) float smem[];
   // [0, 1]: the C partials A_c' t of iteration it land in buffer it & 1;
-  // [2, 3]: the rows of xt
-  __shared__ __align__(8) unsigned long long bars[4];
+  // [2, 3]: the rows of xt; [4, 5] (gather): the owners' columns of rhs
+  constexpr int kBars = kGather ? 6 : 4;
+  __shared__ __align__(8) unsigned long long bars[kBars];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const Split sp = split(m, n);
@@ -125,15 +153,19 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   const int b = blockIdx.x / kCluster, tid = threadIdx.x, warp = tid >> 5;
   const int sub = tid & (kLanesPerRow - 1);
   const int rgroup = tid / kLanesPerRow, ngroups = kThreads / kLanesPerRow;
+  // gather: this CTA owns columns [c0, c0 + nown) of rhs
+  const int seg = segment(n), c0 = rank * seg;
+  const int nown = kGather ? max(0, min(n, c0 + seg) - c0) : n;
+  const int W = kGather ? seg : n;           // width of one CTA's push slot
 
   float* sA = smem;                          // ma x n: rows [a0, a1) of A
   float* sM = sA + (size_t)sp.mr * n;        // nk x n: rows [k0, k1) of Minv
   float* sred = sM + (size_t)sp.nr * n;      // G x n: row-group partials of A_r' t
-  float* srecv = sred + (size_t)G * n;       // 2 x kCluster x n: A_c' t from each CTA c
-  float* sq = srecv + 2 * (size_t)kCluster * n;  // n
+  float* srecv = sred + (size_t)G * n;       // 2 x kCluster x W: A_c' t from each CTA c
+  float* sq = srecv + 2 * (size_t)kCluster * W;  // n
   float* sx = sq + n;                        // n
-  float* srhs = sx + n;                      // n
-  float* sxf = srhs + n;                     // 2 x n: the whole xt, from its owners
+  float* srhs = sx + n;                      // n, or 2 x n gathered (kGather)
+  float* sxf = srhs + (kGather ? 2 : 1) * n;  // 2 x n: the whole xt, from its owners
   float* sl = sxf + 2 * n;                   // ma each: this CTA's rows
   float* su = sl + sp.mr;
   float* srho = su + sp.mr;
@@ -160,13 +192,15 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
     st[i] = ri * zi - yi;
   }
   const uint32_t bar0 = smem_u32(&bars[0]);  // bars[j] is bar0 + 8 j
-  const uint32_t recv_bytes = 4u * kCluster * n, xt_bytes = 4u * n;
+  // the xt and rhs barriers both expect n floats
+  const uint32_t recv_bytes = 4u * kCluster * nown, xt_bytes = 4u * n;
   if (tid == 0) {  // armed for iterations 0 and 1
-    for (int j = 0; j < 4; ++j) bar_init(bar0 + 8 * j);
+    for (int j = 0; j < kBars; ++j) bar_init(bar0 + 8 * j);
     bar_init_fence();
     for (int it = 0; it < 2 && it < iters; ++it) {
       bar_arm(bar0 + 8 * it, recv_bytes);
       bar_arm(bar0 + 8 * (2 + it), xt_bytes);
+      if (kGather) bar_arm(bar0 + 8 * (4 + it), xt_bytes);
     }
   }
   // every CTA of the cluster has started (its shared memory and barriers
@@ -187,8 +221,9 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
 
   for (int it = 0; it < iters; ++it) {
     const int buf = it & 1;
-    float* recv = srecv + (size_t)buf * kCluster * n;
+    float* recv = srecv + (size_t)buf * kCluster * W;
     float* xf = sxf + (size_t)buf * n;
+    float* rhs = kGather ? srhs + (size_t)buf * n : srhs;
     // 1. partial A_r' t: a thread per (row group, 4 columns)
     for (int e = tid; e < G * nc4; e += kThreads) {
       const int c4 = e % nc4, g = e / nc4;
@@ -206,23 +241,47 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
     }
     __syncthreads();
     // 2. sum the row groups and send A_r' t into slot `rank` of every CTA
+    //    (broadcast) or each column into slot `rank` of its owner (gather)
     for (int k = tid; k < n; k += kThreads) {
       float s = sred[k];
       for (int g = 1; g < G; ++g) s += sred[(size_t)g * n + k];
-      const uint32_t slot = smem_u32(recv + (size_t)rank * n + k);
-#pragma unroll
-      for (int c = 0; c < kCluster; ++c)
+      if constexpr (kGather) {
+        const int c = k / seg;
+        const uint32_t slot = smem_u32(recv + (size_t)rank * seg + (k - c * seg));
         st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
+      } else {
+        const uint32_t slot = smem_u32(recv + (size_t)rank * n + k);
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
+      }
     }
     wait(buf, it);
-    // 3. rhs = (sigma x - q) + sum over the cluster of A_c' t, in rank order
-    for (int k = tid; k < n; k += kThreads) {
-      float s = recv[k];
+    // 3. rhs = (sigma x - q) + sum over the cluster of A_c' t, in rank order:
+    //    every column here (broadcast), or this CTA's columns, sent into
+    //    every CTA's rhs (gather)
+    if constexpr (kGather) {
+      for (int j = tid; j < nown; j += kThreads) {
+        float s = recv[j];
 #pragma unroll
-      for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * n + k];
-      srhs[k] = (sigma * sx[k] - sq[k]) + s;
+        for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * seg + j];
+        const int k = c0 + j;
+        const float v = (sigma * sx[k] - sq[k]) + s;
+        const uint32_t slot = smem_u32(rhs + k);
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          st_async(map_rank(slot, c), v, map_rank(bar0 + 8 * (4 + buf), c));
+      }
+      wait(4 + buf, it);
+    } else {
+      for (int k = tid; k < n; k += kThreads) {
+        float s = recv[k];
+#pragma unroll
+        for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * n + k];
+        rhs[k] = (sigma * sx[k] - sq[k]) + s;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     // 4. this CTA's rows of xt = Minv rhs, 8 lanes per row, sent into every
     //    CTA's whole xt
     for (int r0 = 0; r0 < nk; r0 += ngroups) {  // uniform bound: every lane shuffles
@@ -230,7 +289,7 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
       float acc = 0.0f;
       if (r < nk) {
         const float4* Mr = reinterpret_cast<const float4*>(sM + (size_t)r * n);
-        const float4* rv = reinterpret_cast<const float4*>(srhs);
+        const float4* rv = reinterpret_cast<const float4*>(rhs);
 #pragma unroll 2  // two float4 pairs in flight: the cluster-of-8 CTA has 64 registers
         for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow) acc = dot4(Mr[c4], rv[c4], acc);
       }
@@ -282,23 +341,48 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   }
 }
 
-// Launches the kernel, or only asks where it fits (batch <= 0): *clusters
-// is how many clusters can be resident at once, 0 if A's and Minv's rows do
-// not fit a cluster.
+// The launch of one layout, or only the question where it fits (batch <=
+// 0): *clusters is how many clusters can be resident at once, 0 if this
+// layout's CTA does not fit.
+template <bool kGather>
+cudaError_t launch_layout(const float* A, const float* Minv, const float* q, const float* l,
+                          const float* u, const float* rho, const float* x0, const float* z0,
+                          const float* y0, float* xo, float* zo, float* yo, int batch, int m,
+                          int n, int iters, float sigma, float alpha, float oma,
+                          cudaStream_t stream, int* clusters) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      batch, kCluster, kThreads, smem_floats<kGather>(m, n) * sizeof(float), stream, &attr);
+  cudaError_t err = resident_clusters(admm_dense_kernel<kGather>, cfg, clusters);
+  if (err != cudaSuccess || *clusters < 1 || batch <= 0) return err;
+  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel<kGather>, A, Minv, q, l, u, rho, x0, z0, y0,
+                           xo, zo, yo, m, n, iters, sigma, alpha, oma);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launches the kernel in the first layout that fits (broadcast, then
+// gather; each one's occupancy answer is cached per shape), or only asks
+// (batch <= 0). *layout: 0 broadcast, 1 gather, -1 neither fits (then
+// *clusters is 0).
 int launch(const float* A, const float* Minv, const float* q, const float* l, const float* u,
            const float* rho, const float* x0, const float* z0, const float* y0, float* xo,
            float* zo, float* yo, int batch, int m, int n, int iters, float sigma, float alpha,
-           float oma, cudaStream_t stream, int* clusters) {
+           float oma, cudaStream_t stream, int* clusters, int* layout) {
+  *layout = -1;
+  *clusters = 0;
   if (n % 4 != 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(
-      batch, kCluster, kThreads, smem_floats(m, n) * sizeof(float), stream, &attr);
-  cudaError_t err = resident_clusters(admm_dense_kernel, cfg, clusters);
-  if (err != cudaSuccess || *clusters < 1 || batch <= 0) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, A, Minv, q, l, u, rho, x0, z0, y0, xo, zo,
-                           yo, m, n, iters, sigma, alpha, oma);
+  cudaError_t err = launch_layout<false>(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch,
+                                         m, n, iters, sigma, alpha, oma, stream, clusters);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (*clusters >= 1) {
+    *layout = 0;
+    return 0;
+  }
+  err = launch_layout<true>(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n, iters,
+                            sigma, alpha, oma, stream, clusters);
+  if (err == cudaSuccess && *clusters >= 1) *layout = 1;
+  return (int)err;
 }
 
 }  // namespace
@@ -312,17 +396,25 @@ extern "C" int admm_dense_f32(const float* A, const float* Minv, const float* q,
                               const float* y0, float* xo, float* zo, float* yo, int batch, int m,
                               int n, int iters, float sigma, float alpha, float oma,
                               cudaStream_t stream) {
-  int clusters = 0;
+  int clusters = 0, layout = -1;
   const int err = launch(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n, iters,
-                         sigma, alpha, oma, stream, &clusters);
+                         sigma, alpha, oma, stream, &clusters, &layout);
   return err == 0 && clusters < 1 ? (int)cudaErrorInvalidConfiguration : err;
 }
 
-// The cluster admm_dense_f32 launches for A (m, n): its CTAs into *csize and
+// The cluster admm_dense_f32 launches for A (m, n): its CTAs into *csize,
 // how many such clusters can be resident at once into *clusters (0: A does
-// not fit). Returns a cudaError_t as above.
-extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters) {
+// not fit), its layout into *layout (0 broadcast, 1 gather, -1 none) and
+// its dynamic shared memory per CTA into *smem_bytes (0 if none fits).
+// Returns a cudaError_t as above.
+extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters, int* layout,
+                                int* smem_bytes) {
   *csize = kCluster;
-  return launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, nullptr, nullptr, 0, m, n, 0, 0.f, 0.f, 0.f, nullptr, clusters);
+  const int err = launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, 0, m, n, 0, 0.f, 0.f, 0.f, nullptr,
+                         clusters, layout);
+  *smem_bytes = *layout == 0   ? (int)(smem_floats<false>(m, n) * sizeof(float))
+                : *layout == 1 ? (int)(smem_floats<true>(m, n) * sizeof(float))
+                               : 0;
+  return err;
 }

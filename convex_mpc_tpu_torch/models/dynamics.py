@@ -179,3 +179,11 @@ def tick_model(dyn: Go2Dyn, q: torch.Tensor, dq: torch.Tensor) -> TickModel:
         foot_pos=foot_pos, foot_vel=foot_vel, J_feet=J_feet, M=M, bias=bias,
         jdot_qd=jdot_qd, com=com, vcom=vcom, base_R=base_R,
     )
+
+
+def operational_space_inertia(M: torch.Tensor, J_full: torch.Tensor) -> torch.Tensor:
+    """Lambda = (J M^-1 J')^-1 (B, 3, 3) for point Jacobians J_full (B, 3, 18)
+    and mass matrices M (B, 18, 18): the swing-leg feedforward operator,
+    solved through the Cholesky factor of M (no explicit inverse of M)."""
+    Minv_Jt = torch.cholesky_solve(J_full.transpose(-1, -2), torch.linalg.cholesky(M))
+    return torch.linalg.inv(torch.matmul(J_full, Minv_Jt))

@@ -2,17 +2,18 @@
 
 Port of ``convex_mpc_tpu/mpc/admm.py``:
 
-- ``solve_adaptive`` on its production branch (``StructuredQp`` input,
-  ``snap_first=False``): Ruiz equilibration, the KKT inverse by
-  ``spd_inverse``, 25-iteration chunks of the structured ADMM kernel,
-  per-scenario residual / stall / small-force accepts, the bounded rho
-  descent with rescue and gate steps, refactor-on-demand, and the certified
-  active-set polish ladder. The JAX ``lax.while_loop`` / ``lax.cond``
-  predicates are batch-global, so here they are host reads: whether to
-  polish and whether to refactor/continue are read once per chunk, and the
-  ladder's round condition once per round. The dense-``QpData`` input, the
-  snap-first compaction path and ``debug`` printing are not ported and
-  raise;
+- ``solve_adaptive`` (``StructuredQp`` input, or a dense ``QpData`` whose A
+  has the condensed block structure, its blocks extracted once): Ruiz
+  equilibration, the KKT inverse by ``spd_inverse``, 25-iteration chunks of
+  the structured ADMM kernel, per-scenario residual / stall / small-force
+  accepts, the bounded rho descent with rescue and gate steps,
+  refactor-on-demand, and the certified active-set polish ladder, with the
+  optional snap-first proposal that sends only the scenarios it cannot
+  certify through a compacted ladder (``snap_first``) and the ``debug``
+  prints. The JAX ``lax.while_loop`` / ``lax.cond`` predicates are
+  batch-global, so here they are host reads: whether to polish and whether
+  to refactor/continue are read once per chunk, the ladder's round
+  condition once per round, and the snap failures' count once per polish;
 - the legacy fixed-segment ``solve`` / ``solve_batch`` on a dense
   ``QpData``: Ruiz scaling, ``SEGMENTS`` equal iteration segments with a
   Cholesky refactorization and a per-scenario rho update between them, the
@@ -32,6 +33,7 @@ from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
 from convex_mpc_tpu_torch.mpc.qp import QpData
 from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
+from convex_mpc_tpu_torch.utils.interop import tree_map
 
 
 class AdmmState(NamedTuple):
@@ -293,16 +295,17 @@ class KktSetup(NamedTuple):
     K_box_diag: torch.Tensor  # (B, nz)
 
 
-def kkt_setup(qp: StructuredQp, sigma: float, eq_scale: float, scaling_iters: int) -> KktSetup:
-    B, nz = qp.q.shape
+def kkt_setup(p_dense, q, C, box_diag, l, u, sigma: float, eq_scale: float,
+              scaling_iters: int) -> KktSetup:
+    """The KKT pieces of the block-form QP (raw friction blocks ``C``, raw
+    box diagonal ``box_diag``)."""
+    B, nz = q.shape
     nb = nz // 3
     m_fr = 4 * nb
-    dtype, dev = qp.q.dtype, qp.q.device
-    box_raw = torch.ones((B, nz), dtype=dtype, device=dev)
-    s = ruiz_equilibrate_structured(qp.p_dense, qp.q, qp.C, box_raw, qp.l, qp.u,
-                                    iters=scaling_iters)
-    is_eq = (qp.u - qp.l) < 1e-9
-    w_vec = torch.where(is_eq, EQ_SCALE, 1.0).to(dtype)
+    dtype, dev = q.dtype, q.device
+    s = ruiz_equilibrate_structured(p_dense, q, C, box_diag, l, u, iters=scaling_iters)
+    is_eq = (u - l) < 1e-9
+    w_vec = torch.where(is_eq, eq_scale, 1.0).to(dtype)
     w_fr, w_box = w_vec[:, :m_fr], w_vec[:, m_fr:]
     P_mat = s.p_dense + sigma * torch.eye(nz, dtype=dtype, device=dev)
     K_blocks = torch.einsum("bnfr,bnf,bnfs->bnrs", s.C, w_fr.reshape(B, nb, 4), s.C)
@@ -324,7 +327,9 @@ def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3
                scaling_iters: int = 5) -> torch.Tensor:
     """The solver's Ruiz-scaled KKT matrix of ``qp`` at penalty ``rho`` (B,) —
     the matrix ``solve_adaptive`` hands to ``spd_inverse``."""
-    return kkt_matrix(kkt_setup(qp, sigma, eq_scale, scaling_iters), rho)
+    box = torch.ones_like(qp.q)
+    return kkt_matrix(kkt_setup(qp.p_dense, qp.q, qp.C, box, qp.l, qp.u, sigma, eq_scale,
+                                scaling_iters), rho)
 
 
 def _factorize(setup: KktSetup, rho) -> torch.Tensor:
@@ -360,18 +365,20 @@ def solve_adaptive(
     small_force_scale: float = 50.0,
     return_polished: bool = True,
     snap_first: bool = False,
+    polish_cap_div: int = 4,
 ) -> AdmmSolution:
     """Batched adaptive-iteration ADMM with refactor-on-demand (see module doc).
 
-    Every leaf of ``qp``/``state`` carries a leading batch axis. Returns a
-    per-scenario :class:`AdmmSolution`.
+    Every leaf of ``qp``/``state`` carries a leading batch axis. ``qp`` is a
+    ``StructuredQp`` or a dense ``QpData`` with a dense P whose A holds the
+    condensed block structure: friction rows local to one (step, leg)
+    3-column block, then a diagonal box tail. Off-block entries of such an A
+    are dropped (``debug`` prints their largest magnitude). ``snap_first``:
+    propose the snapped point for the whole batch first and run the reduced
+    ladder only for the scenarios it does not certify, compacted into
+    ``max(B // polish_cap_div, 8)`` rows when B >= 16 and they fit.
+    Returns a per-scenario :class:`AdmmSolution`.
     """
-    if not isinstance(qp, StructuredQp):
-        raise NotImplementedError("solve_adaptive takes the block-form StructuredQp only")
-    if snap_first:
-        raise NotImplementedError("the snap-first compaction path is not ported")
-    if debug:
-        raise NotImplementedError("debug printing is not ported")
     dtype, dev = qp.q.dtype, qp.q.device
     B, nz = qp.q.shape
     m = qp.l.shape[-1]
@@ -383,9 +390,27 @@ def solve_adaptive(
         raise ValueError("condensed layout: 4 pyramid rows per block, nu | nz")
     first_step_vars = nu
 
-    C_raw = qp.C
-    box_diag_raw = torch.ones((B, nz), dtype=dtype, device=dev)
-    setup = kkt_setup(qp, sigma, eq_scale, scaling_iters)
+    if isinstance(qp, StructuredQp):
+        C_raw = qp.C
+        box_diag_raw = torch.ones((B, nz), dtype=dtype, device=dev)
+    else:
+        if qp.p_dense is None:
+            raise ValueError("solve_adaptive takes a dense-P QP (the condensed form)")
+        face_rows = const(("face_rows", nb), dev,
+                          lambda d: torch.arange(m_fr, device=d).reshape(nb, 4))
+        blk_cols = const(("blk_cols", nb), dev,
+                         lambda d: torch.arange(nz, device=d).reshape(nb, 3))
+        C_raw = qp.A[:, face_rows[:, :, None], blk_cols[:, None, :]]
+        box_diag_raw = torch.diagonal(qp.A[:, m_fr:, :], dim1=-2, dim2=-1)
+        if debug:
+            A_rec = torch.zeros_like(qp.A)
+            A_rec[:, face_rows[:, :, None], blk_cols[:, None, :]] = C_raw
+            A_rec[:, m_fr:, :] = torch.diag_embed(box_diag_raw)
+            off_block = (qp.A - A_rec).abs().max().item()
+            print(f"solve_adaptive dense-A off-block max |a| = {off_block} "
+                  f"(must be 0: off-block entries are dropped)")
+    setup = kkt_setup(qp.p_dense, qp.q, C_raw, box_diag_raw, qp.l, qp.u, sigma, eq_scale,
+                      scaling_iters)
     s, is_eq, w_vec = setup.s, setup.is_eq, setup.w_vec
 
     x = state.x / s.d
@@ -425,9 +450,10 @@ def solve_adaptive(
             s.C, box_diag, Minv, s.q, s.l, s.u, rho_vec, x, z, y,
             iters=check_every, sigma=sigma, alpha=alpha)
 
-    def attempt_polish(x, y):
-        """Certified accept: the reduced ladder for the whole batch (with
-        snap-first off every scenario needs it, so its count is B > 0)."""
+    def attempt_polish(x, y, step):
+        """Certified accept: the snap proposal (``snap_first``), then the
+        reduced ladder for the scenarios it did not certify: none, a
+        compacted sub-batch of ``cap`` rows, or the whole batch."""
         fin_l = torch.isfinite(qp.l)
         fin_u = torch.isfinite(qp.u)
         y_raw = s.e * y / s.c[:, None]
@@ -439,7 +465,34 @@ def solve_adaptive(
         ops = PolishOps(p_dense=qp.p_dense, q=qp.q, l=qp.l, u=qp.u, is_eq=is_eq,
                         C=C_raw, box=box_diag_raw, x_it=x_it_raw, o_x=zeros_b, v_x=zeros_b)
         ops = ops._replace(o_x=_polish_obj(ops, x_it_raw), v_x=_polish_viol(ops, x_it_raw))
-        x_pol_raw, ok_pol = _polish_ladder(ops, act_lo, act_hi, polish_rounds, eps_abs)
+        if snap_first:
+            x_sn, y_sn, st_sn = _polish_core(ops, act_lo, act_hi, reduced=False)
+            ok_sn = _polish_certify(ops, act_lo, act_hi, x_sn, y_sn, st_sn, eps_abs) & (
+                step <= stall_tol)
+            x_base = torch.where(ok_sn[:, None], x_sn, 0.0)
+        else:
+            ok_sn = torch.zeros((B,), dtype=torch.bool, device=dev)
+            x_base = torch.zeros_like(x_it_raw)
+        need = ~ok_sn
+        cap = B if (B < 16 or not snap_first) else max(B // polish_cap_div, 8)
+        count = B if not snap_first else int(need.sum())  # host read
+        if count == 0:
+            x_pol_raw, ok_pol = x_base, ok_sn
+        elif count <= cap < B:
+            # the snap failures alone, gathered into a sub-batch of their own
+            idx = need.nonzero()[:, 0]
+            o_sub = tree_map(lambda a: a[idx], ops)
+            x_s, ok_s = _polish_ladder(o_sub, act_lo[idx], act_hi[idx], polish_rounds, eps_abs)
+            x_pol_raw, ok_pol = x_base.clone(), ok_sn.clone()
+            x_pol_raw[idx] = torch.where(ok_s[:, None], x_s, x_base[idx])
+            ok_pol[idx] = ok_s
+        else:
+            x_f, ok_f = _polish_ladder(ops, act_lo, act_hi, polish_rounds, eps_abs)
+            x_pol_raw = torch.where(ok_sn[:, None], x_base, x_f)
+            ok_pol = ok_sn | ok_f
+        if debug:
+            print(f"polish: snap_ok {int(ok_sn.sum())}/{B} viol x={ops.v_x.cpu().numpy()} "
+                  f"pol={_polish_viol(ops, x_pol_raw).cpu().numpy()} ok={ok_pol.cpu().numpy()}")
         return x_pol_raw / s.d, ok_pol
 
     Minv = _factorize(setup, rho)
@@ -463,6 +516,9 @@ def solve_adaptive(
         rho_ok = rho <= rho_accept_max
         step = torch.amax(torch.abs(s.d * (x - x_prev)), dim=-1)
         stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+        if debug:
+            f = lambda v: v.cpu().numpy()  # noqa: E731
+            print(f"chunk {it} rho={f(rho)} pr={f(pr)} dr={f(dr)} step={f(step)}")
         newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
         iters_done = (it + 1) * check_every
         conv_iter = torch.where(newly & (conv_iter < 0), iters_done, conv_iter).to(torch.int32)
@@ -471,7 +527,7 @@ def solve_adaptive(
             at_cap = (it + 1) >= n_chunks
             want_pol = at_cap or bool(converged.all())  # host read, once per chunk
             if want_pol:
-                x_pol_buf, pol_ok = attempt_polish(x, y)
+                x_pol_buf, pol_ok = attempt_polish(x, y, step)
             x_scale = torch.amax(torch.abs((s.d * x)[:, :first_step_vars]), dim=-1)
             step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
             if want_pol and not at_cap:

@@ -13,10 +13,12 @@ Two kernels, each replacing a Pallas TPU kernel of
   separate eager op, so the kernel (compiled without multiply-add
   contraction) can agree with it bit for bit on the card;
 - :func:`admm_iterations` — the dense-A iterations of the legacy
-  fixed-segment ``admm.solve``. The CUDA kernel is ``csrc/admm_dense.cu``
-  (a cluster per scenario whose CTAs split the rows of A and Minv, both held
-  in shared memory for the whole chunk); the plain version is the
-  arithmetic of the TPU ``_kernel``.
+  fixed-segment ``admm.solve``, on the condensed QP (A (448, 192) at
+  horizon 16) and on the full form (A (640, 384)). The CUDA kernel is
+  ``csrc/admm_dense.cu`` (a cluster of 8 CTAs per scenario that split the
+  rows of A and Minv, both held in shared memory for the whole chunk, in
+  one of two layouts of the cluster's exchanges chosen per shape); the
+  plain version is the arithmetic of the TPU ``_kernel``.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each C launcher picks its cluster shape from
@@ -86,16 +88,16 @@ def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0
     return x, z, y
 
 
-def _cluster_shape(name: str, *sizes: int) -> tuple[int, int]:
-    """(CTAs per cluster, clusters resident at once on this card) of the
+def _cluster_shape(name: str, *sizes: int, outputs: int = 2) -> tuple[int, ...]:
+    """(CTAs per cluster, clusters resident at once on this card, ...) of the
     launch that ``csrc/<name>.cu`` makes for ``sizes``, as its C launcher
-    (``<name>_shape``) chooses them."""
+    (``<name>_shape``, ``outputs`` int results) chooses them."""
     fn = getattr(cuda_build.load(name), f"{name}_shape")
-    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)] * outputs
     fn.restype = ctypes.c_int
-    csize, resident = ctypes.c_int(0), ctypes.c_int(0)
-    cuda_build.check(fn(*sizes, ctypes.byref(csize), ctypes.byref(resident)), f"{name} shape")
-    return csize.value, resident.value
+    out = [ctypes.c_int(0) for _ in range(outputs)]
+    cuda_build.check(fn(*sizes, *(ctypes.byref(v) for v in out)), f"{name} shape")
+    return tuple(v.value for v in out)
 
 
 def structured_cluster_shape(nb: int) -> tuple[int, int]:
@@ -175,10 +177,17 @@ def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
     return x, z, y
 
 
-def dense_cluster_shape(m: int, n: int) -> tuple[int, int]:
-    """The dense kernel's cluster for A (m, n): 8 CTAs, and how many are
-    resident at once (0: A's and Minv's rows do not fit)."""
-    return _cluster_shape("admm_dense", m, n)
+_DENSE_LAYOUTS = {0: "broadcast", 1: "gather", -1: None}
+_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
+
+
+def dense_cluster_shape(m: int, n: int) -> tuple[int, int, str | None, int]:
+    """The dense kernel's launch for A (m, n), as its C launcher chooses it:
+    (CTAs per cluster (8), clusters resident at once, the layout of the
+    cluster's exchanges ("broadcast", "gather"; None and 0 resident where
+    neither fits), dynamic shared bytes per CTA)."""
+    csize, resident, layout, smem = _cluster_shape("admm_dense", m, n, outputs=4)
+    return csize, resident, _DENSE_LAYOUTS[layout], smem
 
 
 def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
@@ -195,6 +204,9 @@ def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
     stream = torch.cuda.current_stream(A.device).cuda_stream
     ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
     err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
+    if err == _INVALID_CONFIGURATION:
+        raise RuntimeError(f"admm_iterations: A ({m}, {n}) and Minv ({n}, {n}) fit no "
+                           f"cluster layout of admm_dense.cu on this card (cudaError {err})")
     cuda_build.check(err, "admm_iterations")
     return xo, zo, yo
 

@@ -9,7 +9,8 @@ batch axis and the tick ``lax.scan`` a Python loop (or, with
 ``use_fused_ticks``, one fused window: ``sim/tick_fused.py``); the logs keep
 the ``vmap``-of-``scan`` layout (``CycleLog.ticks.*`` is
 ``(B, steps_per_mpc, ...)``). ``mpc_cycle_fixed`` is the same period on the
-legacy fixed-segment solver.
+legacy fixed-segment solver, on the condensed QP or on the full form
+(``formulation="full"``, ``mpc/qp.py``).
 
 The CUDA kernels run when the tensors are on a CUDA device and their plain
 versions when they are on the CPU; there is no other switch.
@@ -21,6 +22,7 @@ import math
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from convex_mpc_tpu_torch._device import F32, as_f32, const, default_device
@@ -30,7 +32,7 @@ from convex_mpc_tpu_torch.control import reference as R
 from convex_mpc_tpu_torch.models import dynamics as D
 from convex_mpc_tpu_torch.models import kinematics as K
 from convex_mpc_tpu_torch.models.go2_params import DEFAULT_PARAMS
-from convex_mpc_tpu_torch.mpc import admm, condensed
+from convex_mpc_tpu_torch.mpc import admm, condensed, qp
 from convex_mpc_tpu_torch.ops.rotations import quat_to_rpy, yaw_unwrap_step
 from convex_mpc_tpu_torch.sim import physics as P
 from convex_mpc_tpu_torch.sim import tick_fused
@@ -70,6 +72,36 @@ def constant_schedule(vx=0.0, vy=0.0, z=0.27, wz=0.0, t_end=1e9, device=None) ->
     f = lambda v: as_f32([v], device)
     return CommandSchedule(t_start=f(0.0), t_end=f(t_end), vx=f(vx), vy=f(vy),
                            z_pos=f(z), yaw_rate=f(wz))
+
+
+def ramp_schedule(sched: CommandSchedule, max_acc: float = 1.5, max_alpha: float = 6.0,
+                  step: float = 0.1) -> CommandSchedule:
+    """Slew-rate-limit an unbatched (K,) step schedule into piecewise-constant
+    ramps of ``step`` seconds: vx and vy change by at most ``max_acc`` m/s^2,
+    the yaw rate by at most ``max_alpha`` rad/s^2, z follows its target.
+    Computed on the host in float64 as the JAX package does; returns the
+    denser schedule on ``sched``'s device."""
+    col = {f: np.asarray(v.detach().cpu()) for f, v in zip(sched._fields, sched)}
+    ts = np.arange(0.0, float(col["t_end"].max()) + step, step)
+
+    def raw(t):
+        inp = (col["t_start"] <= t) & (t < col["t_end"])
+        if inp.any():
+            i = int(np.argmax(inp))
+            return np.array([col["vx"][i], col["vy"][i], col["z_pos"][i], col["yaw_rate"][i]],
+                            float)
+        return np.array([0.0, 0.0, 0.27, 0.0])
+
+    cur = raw(0.0)
+    rows = []
+    for t in ts:
+        tgt = raw(t)
+        dv = np.clip(tgt[:2] - cur[:2], -max_acc * step, max_acc * step)
+        dw = np.clip(tgt[3] - cur[3], -max_alpha * step, max_alpha * step)
+        cur = np.array([cur[0] + dv[0], cur[1] + dv[1], tgt[2], cur[3] + dw])
+        rows.append((t, t + step, *cur))
+    dev = sched.t_start.device
+    return CommandSchedule(*[as_f32(np.asarray(c), dev) for c in zip(*rows)])
 
 
 def lookup_command(sched: CommandSchedule, t) -> R.BodyCommand:
@@ -115,14 +147,14 @@ class CycleLog(NamedTuple):
 
 
 def init_state(dyn: D.Go2Dyn, n: int, x=0.0, y=0.0, formulation: str = "condensed") -> EngineState:
-    """Unbatched initial state (tile with :func:`broadcast_batch`)."""
-    if formulation != "condensed":
-        raise NotImplementedError("only the condensed formulation is ported")
+    """Unbatched initial state (tile with :func:`broadcast_batch`); the solver
+    state has the sizes of the ``formulation``'s QP ("condensed" or "full")."""
+    mod = {"condensed": condensed, "full": qp}[formulation]
     dev = dyn.mass.device
     plant = P.init_plant(dyn, x=x, y=y)
     com, _ = D.com_state(dyn, plant.q[None], torch.zeros((1, 18), dtype=F32, device=dev))
     x_vec0 = torch.cat([com[0], torch.zeros(9, dtype=F32, device=dev)])
-    nz, m = condensed.n_vars(n), condensed.n_rows(n)
+    nz, m = mod.n_vars(n), mod.n_rows(n)
     zero = lambda *s: torch.zeros(s, dtype=F32, device=dev)
     return EngineState(
         plant=plant,
@@ -348,15 +380,21 @@ def mpc_cycle_fixed(
     formulation: str = "condensed",
 ) -> tuple[EngineState, CycleLog]:
     """One MPC period for a scenario batch on the LEGACY fixed-segment solver
-    (``admm.solve_batch`` on the dense condensed QP, rho reset to 0.1 each
-    cycle, (x, z, y) warm-started).
+    (``admm.solve_batch``).
+
+    ``formulation="condensed"``: the dense condensed QP, rho reset to 0.1
+    each cycle, (x, z, y) warm-started, OSQP's scaled termination.
+    ``formulation="full"``: the full-form QP (``qp.build_qp``, states and
+    forces as variables) under the solver's defaults, the whole solver state
+    (rho included) carried from the last cycle; u0 is the first step's
+    forces (``qp.split_solution``).
 
     Kept as the iteration->throughput reference curve and for solver
     comparisons; production runs :func:`mpc_cycle_batch`. Inputs carry a
-    leading batch axis, as there. Only the condensed formulation is ported.
+    leading batch axis, as there.
     """
-    if formulation != "condensed":
-        raise NotImplementedError("only the condensed formulation is ported")
+    if formulation not in ("condensed", "full"):
+        raise ValueError(f"formulation is 'condensed' or 'full', got {formulation!r}")
     dev = state.plant.q.device
     cmd = lookup_command(sched, state.t)
     obs, yaw_cont, yaw_prev = observe(dyn, state.plant, state.yaw_cont, state.yaw_prev,
@@ -368,13 +406,17 @@ def mpc_cycle_fixed(
     x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] + (-p0[:, None, :]), traj.x_ref[:, :, 3:]], dim=-1)
     qd = const(("q_diag", tuple(float(v) for v in q_diag)), dev,
                lambda d: torch.as_tensor(q_diag, dtype=F32, device=d))
-    data, _ = condensed.build_condensed(traj.dyn, x0_s, x_ref_s, traj.contact, qd, r_value,
-                                        mu_mpc, fz_min)
-    # warm (x, z, y), but rho restarts at 0.1 every solve
-    warm = state.solver._replace(rho=torch.full_like(state.solver.rho, 0.1))
-    sol = admm.solve_batch(data, warm, max_iter=solver_iters, scaled_termination=True,
-                           eps_abs=1e-4, eps_rel=1e-4, box_tail=n * 12)
-    u0 = sol.x[:, 0:12].reshape(-1, 4, 3)
+    qargs = (traj.dyn, x0_s, x_ref_s, traj.contact, qd, r_value, mu_mpc, fz_min)
+    if formulation == "condensed":
+        data, _ = condensed.build_condensed(*qargs)
+        # warm (x, z, y), but rho restarts at 0.1 every solve
+        warm = state.solver._replace(rho=torch.full_like(state.solver.rho, 0.1))
+        sol = admm.solve_batch(data, warm, max_iter=solver_iters, scaled_termination=True,
+                               eps_abs=1e-4, eps_rel=1e-4, box_tail=n * 12)
+        u0 = sol.x[:, 0:12].reshape(-1, 4, 3)
+    else:
+        sol = admm.solve_batch(qp.build_qp(*qargs), state.solver, max_iter=solver_iters)
+        u0 = qp.split_solution(sol.x, n)[1][:, 0].reshape(-1, 4, 3)
     (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = _run_ticks(
         dyn, gait, contact, cmd, traj, u0, state.plant, state.leg, yaw_cont, yaw_prev,
         state.vel_filt, state.t, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
@@ -409,6 +451,12 @@ def _simulate(cycle, dyn, gait, contact, sched, state, n_cycles: int, **cycle_kw
         return state, None
     stacked = [torch.stack(v, dim=0) for v in zip(*(tree_leaves(lg) for lg in logs))]
     return state, tree_unflatten(logs[0], stacked)
+
+
+def simulate(dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):
+    """``n_cycles`` MPC periods of ONE scenario (unbatched inputs) through
+    :func:`mpc_cycle`; logs stacked as (n_cycles, ...)."""
+    return _simulate(mpc_cycle, dyn, gait, contact, sched, state, n_cycles, **cycle_kwargs)
 
 
 def simulate_batched(dyn, gait, contact, sched, state, n_cycles: int, **cycle_kwargs):

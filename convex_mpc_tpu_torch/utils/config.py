@@ -1,9 +1,11 @@
 """Typed configuration tree for the whole engine (copy of the JAX package's).
 
-The dataclasses, ``DEFAULT_CONFIG`` / ``TUNED_CONFIG`` and the production
-kwargs adapter ``engine_kwargs_batched`` of ``convex_mpc_tpu/utils/config.py``,
-kept as the port's own copy. The port has no ``use_pallas`` knob: the engine
-picks the CUDA kernels by the tensors' device.
+The dataclasses, ``DEFAULT_CONFIG`` / ``TUNED_CONFIG``, the kwargs adapters
+``engine_kwargs_batched`` / ``engine_kwargs_fixed`` and the constructors
+``contact_from_config`` / ``gait_from_config`` of
+``convex_mpc_tpu/utils/config.py``, kept as the port's own copy. The port has
+no ``use_pallas`` knob: the engine picks the CUDA kernels by the tensors'
+device, and the two constructors take the device as its entry points do.
 """
 
 from __future__ import annotations
@@ -166,6 +168,55 @@ def engine_kwargs_batched(cfg: "EngineConfig") -> dict:
 # The per-scenario production wrapper consumes the same kwargs as the batch
 # path (engine.mpc_cycle is a B=1 wrapper over mpc_cycle_batch).
 engine_kwargs = engine_kwargs_batched
+
+
+def engine_kwargs_fixed(cfg: "EngineConfig") -> dict:
+    """Static kwargs for the LEGACY fixed-segment path
+    (sim.engine.mpc_cycle_fixed / simulate_fixed) — solver-comparison use."""
+    return dict(
+        n=cfg.mpc.horizon,
+        steps_per_mpc=cfg.sim.steps_per_mpc,
+        solver_iters=cfg.solver.max_iter,
+        tau_max=cfg.leg.tau_max,
+        mpc_dt=cfg.mpc_dt,
+        sim_dt=cfg.sim.dt,
+        q_diag=cfg.mpc.q_diag,
+        r_value=cfg.mpc.r_diag_value,
+        mu_mpc=cfg.mpc.mu,
+        fz_min=cfg.mpc.fz_min,
+        vel_filter_hz=cfg.sim.vel_filter_hz,
+        formulation=cfg.solver.formulation,
+    )
+
+
+def contact_from_config(cfg: "EngineConfig", device=None):
+    """Unbatched ContactParams built from the config tree, on ``device``."""
+    from convex_mpc_tpu_torch.sim.physics import default_contact
+
+    return default_contact(
+        kn=cfg.sim.contact_stiffness,
+        dn=cfg.sim.contact_damping,
+        mu=cfg.sim.friction_mu,
+        vtol=cfg.sim.friction_vel_tol,
+        ground_z=cfg.sim.ground_height,
+        armature=cfg.sim.armature,
+        joint_damping=cfg.sim.joint_damping,
+        device=device,
+    )
+
+
+def gait_from_config(cfg: "EngineConfig", device=None):
+    """Unbatched GaitParams built from the config tree, on ``device``."""
+    from convex_mpc_tpu_torch.control.gait import make_gait_params
+
+    return make_gait_params(
+        frequency_hz=cfg.gait.frequency_hz,
+        duty=cfg.gait.duty,
+        phase_offset=cfg.gait.phase_offset,
+        swing_height=cfg.gait.swing_height,
+        touchdown_z=cfg.gait.touchdown_z,
+        device=device,
+    )
 
 
 DEFAULT_CONFIG = EngineConfig()

@@ -18,7 +18,7 @@ import torch
 _MODULES = (
     "ops.linalg", "models.kinematics", "models.dynamics", "control.gait",
     "control.srb", "control.reference", "control.leg", "sim.physics",
-    "mpc.qp", "mpc.condensed", "mpc.admm", "sim.tick_fused", "sim.engine",
+    "mpc.qp", "mpc.condensed", "mpc.admm", "sim.tick_fused", "sim.engine", "sim.scenarios",
 )
 
 

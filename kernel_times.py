@@ -7,7 +7,10 @@ script), which builds its kernels under DIR, and times on one card, at
 B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
 and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
 25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and
-``admm_iterations`` at A (448, 192); the fused tick window
+``admm_iterations`` at A (448, 192) and on the full form's A (640, 384)
+(``chip_smoke.full_form_problem``; a checkout whose package cannot build
+the full form or whose kernel cannot hold it prints why, with ``ms``
+null); the fused tick window
 (``run_ticks_fused``'s launch) at B = 512 for 20 ticks on
 ``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
@@ -79,11 +82,7 @@ def main() -> None:
                               "B": B, "nb": nb, "iters": 25, "ms": ms}))
             del args
     if "dense" in a.kernels:
-        args = smoke.dense_problem(B, 64, seed=11, dev=dev)
-        ms = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
-        print(json.dumps({"root": str(a.root), "kernel": "admm_iterations", "B": B,
-                          "A": list(args[0].shape[1:]), "iters": 25, "ms": ms}))
-        del args
+        dense_times(a.root, smoke, K, dev, B)
     if "tick" in a.kernels:
         tick_times(a.root, smoke, dev, B)
 
@@ -100,6 +99,25 @@ def spd_times(root, smoke, spd_inverse, dev, B) -> None:
     print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
                       "case": "attractor-rho KKT", "err_of_scale": k["e_kernel"] / k["kscale"],
                       "resid": k["r_kernel"]}))
+
+
+def dense_times(root, smoke, K, dev, B) -> None:
+    """``admm_iterations`` for 25 iterations on the condensed shape and on the
+    full form's."""
+    problems = (("condensed", lambda: smoke.dense_problem(B, 64, seed=11, dev=dev)),
+                ("full form", lambda: smoke.full_form_problem(B, dev)))
+    for form, make in problems:
+        rec = {"root": str(root), "kernel": "admm_iterations", "form": form, "B": B,
+               "iters": 25}
+        try:
+            args = make()
+            rec["A"] = list(args[0].shape[1:])
+            rec["ms"] = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
+            del args
+        except (AttributeError, RuntimeError) as exc:  # an older checkout
+            rec.update(ms=None, error=str(exc))
+        print(json.dumps(rec))
+        torch.cuda.empty_cache()
 
 
 def tick_times(root, smoke, dev, B, steps: int = 20) -> None:

@@ -22,9 +22,14 @@ equal (the tick battery comes from ``chip_smoke.tick_battery``, also on a
 duty = 1 gait; at ragged B, up to ``chip_smoke.MAX_FLIPS`` scenarios that
 took another contact branch within rounding are excused, as in
 ``chip_smoke.py``), and its launch one block of four lanes per scenario; the dense
-ADMM iterations within rtol and atol 2e-4 (``chip_smoke.dense_problem``).
-The horizon-24 production cycle at B = 8 agrees with the same cycle on the
-CPU within 2.0 N of applied force.
+ADMM iterations within rtol and atol 2e-4 (``chip_smoke.dense_problem``,
+A (448, 192)) and, on the full form's ``chip_smoke.full_form_problem`` (A
+(640, 384)), within twice the plain version's error against the f64
+iterations (``chip_smoke.dense_f64_errors``), and at A (960, 576) a raise,
+not a launch; the tick window also on
+``chip_smoke.hetero_battery`` (each scenario's own gait and contact).
+The horizon-24 production cycle and the full-form legacy cycle at B = 8
+agree with the same cycles on the CPU within 2.0 N of applied force.
 """
 
 from __future__ import annotations
@@ -38,8 +43,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    MAX_FLIPS, attractor_kkt, dense_problem, rounding_flips, spd_batch, spd_kkt_errors,
-    spd_nonspd, start_batch, structured_problem, tick_battery, window_misses)
+    MAX_FLIPS, attractor_kkt, dense_f64_errors, dense_problem, full_form_problem,
+    hetero_battery, rounding_flips,
+    spd_batch, spd_kkt_errors, spd_nonspd, start_batch, structured_problem, tick_battery,
+    window_misses)
 
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
@@ -195,5 +202,69 @@ def test_horizon24_cycle_card_vs_cpu():
     after = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
     assert after[0] > before[0] and after[1] > before[1]
     s_cpu, _ = TE.mpc_cycle_batch(cpu(dyn), *[cpu(a) for a in batch], **kw)
+    du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
+    assert du0 < 2.0, du0  # Newtons
+
+
+def test_tick_window_kernel_heterogeneous_battery():
+    """B = 512 scenarios, each with its own gait (16 frequencies x 32
+    duties) and contact (mu, kn): the flip rule of the ragged batches."""
+    _need_cuda()
+    args = hetero_battery(16, torch.device("cuda"))
+    out = TTF.run_ticks_fused(*args, 20, 45.0, 1e-3, 30.0)
+    torch.cuda.synchronize()
+    ref = TTF.run_ticks_fused_plain(*args, 20, 45.0, 1e-3, 30.0)
+    miss, errs, _ = window_misses(out, ref, 5e-3)
+    excused, margins = rounding_flips(out, ref, args[2])
+    assert len(margins) <= MAX_FLIPS, margins
+    assert not (miss & ~excused).any(), errs
+
+
+@pytest.mark.parametrize("iters", [1, 25, 50])
+def test_admm_dense_kernel_full_form_matches_plain(iters):
+    """A (640, 384): the full form's QP, in the gather layout."""
+    _need_cuda()
+    args = full_form_problem(8, torch.device("cuda"))
+    assert tuple(args[0].shape) == (8, 640, 384)
+    csize, resident, layout, smem = TK.dense_cluster_shape(640, 384)
+    assert (csize, layout) == (8, "gather") and resident >= 1 and smem <= 232448
+    assert TK.dense_cluster_shape(448, 192)[2] == "broadcast"
+    before = TK.admm_iterations.launches
+    out = TK.admm_iterations(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches == before + 1
+    ref = TK.admm_iterations_plain(*args, iters=iters)
+    d = dense_f64_errors(out, ref, args, iters)
+    assert d["within_bar"], d
+
+
+def test_admm_dense_kernel_raises_where_nothing_fits():
+    """The full form at horizon 24, A (960, 576): no layout holds it; the
+    wrapper raises with the shape and launches nothing."""
+    _need_cuda()
+    m, n = 960, 576
+    assert TK.dense_cluster_shape(m, n)[1:3] == (0, None)
+    args = [torch.zeros(s, device="cuda") for s in
+            [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
+    before = TK.admm_iterations.launches
+    with pytest.raises(RuntimeError, match=r"A \(960, 576\)"):
+        TK.admm_iterations(*args, iters=1)
+    assert TK.admm_iterations.launches == before
+
+
+def test_full_form_cycle_card_vs_cpu():
+    """One legacy cycle on the full form at B = 8 on the card and on the CPU."""
+    _need_cuda()
+    dyn, gait, contact, sched, state = start_batch(8, torch.device("cuda"))
+    full = TE.init_state(dyn, n=16, formulation="full").solver
+    state = state._replace(solver=TE.broadcast_batch(full, 8))
+    batch = (gait, contact, sched, state)
+    kw = dict(solver_iters=150, formulation="full")
+    cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    before = TK.admm_iterations.launches
+    s_gpu, _ = TE.mpc_cycle_fixed(dyn, *batch, **kw)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches > before
+    s_cpu, _ = TE.mpc_cycle_fixed(cpu(dyn), *[cpu(a) for a in batch], **kw)
     du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
     assert du0 < 2.0, du0  # Newtons

@@ -16,7 +16,8 @@ plain version), ``mpc/condensed.py::build_condensed`` / ``recover_states``,
   port reports it at every ``check_every``-th iteration as JAX's default
   branch does, and a gap is f32 rounding at the check threshold;
 - ``mpc_cycle_fixed``: applied forces within 2.0 N of the vmapped JAX cycle
-  over two cycles (the JAX suite's batched-vs-single bar).
+  over two cycles (the JAX suite's batched-vs-single bar), on the condensed
+  QP and on the full form (there also q within 5e-3).
 """
 
 from __future__ import annotations
@@ -199,7 +200,9 @@ def test_mpc_cycle_fixed_matches_jax():
 
 def test_simulate_fixed_shapes():
     """simulate_fixed stacks logs as (n_cycles, B, ...); the batch stays
-    upright; the full formulation raises as init_state does."""
+    upright; two B = 2 cycles of the full formulation (``qp.build_qp``, the
+    solver state carried rho and all) match the vmapped JAX cycles: u0
+    within 2.0 N, q within 5e-3."""
     dyn, args = _start(2)
     state, logs = TE.simulate_fixed(to_port(dyn), *[to_port(a) for a in args], 2,
                                     solver_iters=40)
@@ -208,5 +211,20 @@ def test_simulate_fixed_shapes():
     assert tuple(state.solver.x.shape) == (2, 192)
     z = state.plant.q[:, 2].numpy()
     assert np.isfinite(z).all() and ((z > 0.1) & (z < 0.6)).all(), z
-    with pytest.raises(NotImplementedError):
-        TE.mpc_cycle_fixed(to_port(dyn), *[to_port(a) for a in args], formulation="full")
+
+    gb, cb, scb, sb = args
+    full = JE.broadcast_batch(JE.init_state(dyn, n=16, formulation="full").solver, 2)
+    sb = jax.tree.map(lambda x: jnp.asarray(np.asarray(x)), sb._replace(solver=full))
+    ps = to_port(sb)
+    assert tuple(ps.solver.x.shape) == (2, 384) and tuple(ps.solver.z.shape) == (2, 640)
+    jcycle = jax.jit(jax.vmap(lambda g, c, s, st: JE.mpc_cycle_fixed(
+        dyn, g, c, s, st, solver_iters=150, formulation="full")))
+    pargs = [to_port(a) for a in (dyn, gb, cb, scb)]
+    for cycle in range(2):
+        sb, jlog = jcycle(gb, cb, scb, sb)
+        ps, tlog = TE.mpc_cycle_fixed(*pargs, ps, solver_iters=150, formulation="full")
+        du0 = np.abs(ps.u0.numpy() - np.asarray(sb.u0)).max()
+        dq = np.abs(ps.plant.q.numpy() - np.asarray(sb.plant.q)).max()
+        print(f"full form cycle {cycle}: |du0| {du0:.4f} N, |dq| {dq:.2e}; iters jax "
+              f"{np.asarray(jlog.solver_iters)} port {tlog.solver_iters.numpy()}")
+        assert du0 < 2.0 and dq < 5e-3, (cycle, du0, dq)

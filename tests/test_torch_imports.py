@@ -1,6 +1,7 @@
-"""The port's import rule: no file of ``convex_mpc_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package (not even its modules that
-use no JAX). An AST scan, so imports inside functions count too."""
+"""The port's import rule: no file of ``convex_mpc_tpu_torch/``, not
+``chip_smoke.py``, ``kernel_times.py`` or ``tools/torch_ensemble_cert.py``
+imports JAX or the JAX package (not even its modules that use no JAX). An
+AST scan, so imports inside functions count too."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "tools" / "torch_ensemble_cert.py"]
 BANNED = ("jax", "jaxlib", "convex_mpc_tpu")
 
 
