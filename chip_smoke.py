@@ -32,9 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
    iterations at B = 512, A (448, 192) (the condensed QP; rtol and atol
    2e-4) and A (640, 384) (the full form's QP of the main path's start
    batch; against the f64 iterations, within twice the plain version's
-   error: ``dense_f64_errors``), for 25 and 50 iterations in clusters of 8
-   CTAs, each shape's layout and resident clusters printed, and A (960,
-   576) (the full form at horizon 24) must raise. Before them, each kernel's
+   error: ``dense_f64_errors``; beside it, how many entries the plain
+   version with its sums reordered, ``permuted_plain``, has outside rtol
+   and atol 2e-4), for 25 and 50 iterations in clusters of 8 CTAs, each
+   shape's shared bytes and resident clusters printed, and A (960, 576)
+   (the full form at horizon 24) must raise. Before them, each kernel's
    ``ptxas -v`` lines; every kernel must show no stack frame and no
    spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
@@ -723,18 +725,19 @@ def check_admm_dense(dev) -> list:
     from convex_mpc_tpu_torch.mpc import kernels as K
 
     m, n = 960, 576
-    csize, resident, layout, smem = K.dense_cluster_shape(m, n)
+    csize, resident, smem = K.dense_cluster_shape(m, n)
     args = [torch.zeros(s, device=dev) for s in
             [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
     try:
         K.admm_iterations(*args, iters=1)
     except RuntimeError as exc:
-        print(f"admm_iterations (dense) A={(m, n)}: {resident} clusters resident, layout "
-              f"{layout}; the wrapper raises: {exc}")
+        print(f"admm_iterations (dense) A={(m, n)}: {resident} clusters resident, {smem} B; "
+              f"the wrapper raises: {exc}")
     else:
-        fail(f"admm_iterations at A {(m, n)} launched: no layout should hold it")
-    if resident or layout is not None:
-        fail(f"admm_iterations at A {(m, n)}: a layout ({layout}) reports {resident} clusters")
+        fail(f"admm_iterations at A {(m, n)} launched: no cluster should hold it")
+    if resident or smem:
+        fail(f"admm_iterations at A {(m, n)}: the launcher reports {resident} clusters of "
+             f"{smem} B")
     return rows
 
 
@@ -758,6 +761,27 @@ def dense_f64_errors(out, ref, args, iters: int) -> dict:
     return dict(e_kernel=e_k, e_plain=e_p, scale=scale, within_bar=bool(ok))
 
 
+def outside_2e4(out, ref) -> list:
+    """Entries of each output (x, z, y) outside rtol and atol 2e-4 of ``ref``."""
+    return [int((~torch.isclose(a, b, rtol=2e-4, atol=2e-4)).sum()) for a, b in zip(out, ref)]
+
+
+def permuted_plain(args, iters: int, seed: int = 0):
+    """The plain dense iterations with A's columns (and Minv's rows and
+    columns, q and x) permuted, and x permuted back: the same sums in
+    another f32 order."""
+    from convex_mpc_tpu_torch.mpc import kernels as K
+
+    A, Minv, q, l, u, rho, x, z, y = args
+    perm = torch.randperm(A.shape[-1], generator=torch.Generator().manual_seed(seed))
+    perm = perm.to(A.device)
+    inv = torch.argsort(perm)
+    permuted = [a.contiguous() for a in (A[:, :, perm], Minv[:, perm][:, :, perm], q[:, perm],
+                                         l, u, rho, x[:, perm], z, y)]
+    xp, zp, yp = K.admm_iterations_plain(*permuted, iters=iters)
+    return xp[:, inv], zp, yp
+
+
 def dense_shape_row(dev, form: str, args) -> dict:
     """One shape of the dense iterations: its launch, the check against the
     plain version, and the times of the kernel, the plain version and
@@ -765,11 +789,11 @@ def dense_shape_row(dev, form: str, args) -> dict:
     from convex_mpc_tpu_torch.mpc import kernels as K
 
     B, m, n = args[0].shape
-    csize, resident, layout, smem = K.dense_cluster_shape(m, n)
+    csize, resident, smem = K.dense_cluster_shape(m, n)
     if resident < 1:
         fail(f"admm_iterations: no cluster of {csize} CTAs holds A {(m, n)} on the card")
-    print(f"admm_iterations (dense, {form}) A={(m, n)}: clusters of {csize} CTAs, {layout} "
-          f"layout, {smem} B of shared memory per CTA, {resident} resident at once, "
+    print(f"admm_iterations (dense, {form}) A={(m, n)}: clusters of {csize} CTAs, "
+          f"{smem} B of shared memory per CTA, {resident} resident at once, "
           f"{B / resident:.2f} waves at B={B}")
     worst = 0.0
     for iters in (25, 50):
@@ -777,7 +801,7 @@ def dense_shape_row(dev, form: str, args) -> dict:
         torch.cuda.synchronize()
         ref = K.admm_iterations_plain(*args, iters=iters)
         errs = [(a - b).abs().max().item() for a, b in zip(out, ref)]
-        outside = [int((~torch.isclose(a, b, atol=2e-4, rtol=2e-4)).sum()) for a, b in zip(out, ref)]
+        outside = outside_2e4(out, ref)
         print(f"admm_iterations (dense) B={B} A={(m, n)} iters={iters}: max|k-plain| x/z/y = "
               f"{errs}, entries outside atol 2e-4 rtol 2e-4: {outside}")
         if form == "condensed":
@@ -786,7 +810,10 @@ def dense_shape_row(dev, form: str, args) -> dict:
             d = dense_f64_errors(out, ref, args, iters)
             ok = d["within_bar"]
             print(f"  against the f64 iterations, x/z/y: kernel {d['e_kernel']}, plain "
-                  f"{d['e_plain']} (bar twice the plain + 1e-5 x scale {d['scale']})")
+                  f"{d['e_plain']} (bar twice the plain + 1e-5 x scale {d['scale']}); the "
+                  f"plain version with its sums reordered has "
+                  f"{outside_2e4(permuted_plain(args, iters), ref)} entries outside rtol and "
+                  f"atol 2e-4 of the plain")
         if not (ok and all(torch.isfinite(a).all() for a in out)):
             fail(f"admm_iterations disagrees with its plain version at {iters} iterations "
                  f"(A {(m, n)})")

@@ -30,19 +30,23 @@
 // memory, loaded from device memory once per chunk. Per iteration:
 //  1. each CTA forms its partial A_r' t over its rows: a thread per 4
 //     columns and row group (10 groups at n = 192), float4 loads, then a
-//     sum over the groups, sent by st.async into slot r of every CTA;
-//  2. each CTA waits for the C partials (an mbarrier counting their bytes)
-//     and sums them in rank order, so every CTA gets the same rhs;
-//  3. each CTA computes its rows of xt = Minv rhs (8 lanes per row) and
-//     sends them into every CTA's whole xt;
+//     sum over the groups. CTA c owns columns [c s, (c + 1) s) of rhs,
+//     s = ceil(n / C): each column of the partial is sent by st.async into
+//     slot r of its owner only;
+//  2. each CTA waits for its columns of the C partials (an mbarrier
+//     counting their bytes), sums them in rank order, adds sigma x - q, and
+//     sends its columns of rhs into every CTA's whole rhs;
+//  3. each CTA waits for rhs, computes its rows of xt = Minv rhs (8 lanes
+//     per row, lane l sending the row's entry to CTA l) and sends them into
+//     every CTA's whole xt;
 //  4. each CTA waits for xt, updates x, and computes A_r xt (8 lanes per
 //     row), the relaxation, projection and dual step for its rows, and t
 //     for the next iteration.
-// The partials and xt land in double-buffered slots, so no cluster-wide
-// barrier is needed per iteration: a CTA waits only for the bytes it reads
-// (a first version with two cluster.sync() per iteration took 2.04-2.10 ms
-// in clusters of 8).
-// Three block barriers per iteration.
+// Every column of rhs is summed once, by its owner, in rank order, so every
+// CTA gets the same rhs. The partials, rhs and xt land in double-buffered
+// slots, so no cluster-wide barrier is needed per iteration: a CTA waits
+// only for the bytes it reads (a first version with two cluster.sync() per
+// iteration took 2.04-2.10 ms in clusters of 8).
 //
 // Arithmetic, cluster of 4 (m/4 = 112 rows of A, 86,016 B; n/4 = 48 rows of
 // Minv, 36,864 B; ~143 KB per CTA, one CTA per SM): 30 clusters, i.e.
@@ -57,21 +61,18 @@
 // 5.3118 ms for torch.bmm and the 0.0811 ms bound. So this file launches
 // clusters of 8 only, and raises where A's and Minv's rows do not fit.
 //
-// Two layouts of the cluster of 8, chosen per shape by the launcher (the
-// first whose CTA fits the card's shared memory):
-//  - broadcast (above): every CTA receives every CTA's whole partial A_r' t,
-//    2 x 8 x n floats of push slots, and sums all n columns itself;
-//  - gather: CTA c owns columns [c s, (c + 1) s), s = ceil(n / 8), and
-//    receives only those columns of each CTA's partial (2 x 8 x s floats of
-//    slots); it sums them in rank order, adds sigma x - q, and sends its
-//    columns of rhs into every CTA's whole rhs (2 x n floats, a third
-//    mbarrier pair): one more wait per iteration, 12 n fewer floats.
-// The full-form QP (formulation="full", nz = 24 N, m = 40 N) at horizon 16
-// is A (640, 384): broadcast needs 80 + 48 rows of 384 and 25 x 384 +
-// 480 floats more, 238,464 B, above the 232,448 B one CTA may have; gather
-// needs 218,496 B, one CTA per SM. Horizons 24 and 32 (A (960, 576), (1280,
-// 768)) fit neither, and the launcher returns cudaErrorInvalidConfiguration.
-// A (448, 192) stays on broadcast (86,592 B, two CTAs per SM).
+// The owners' gather (step 2) replaced an exchange in which every CTA
+// received every CTA's whole partial (2 x 8 x n floats of slots) and summed
+// all n columns itself: 12 n more floats, one wait fewer. That layout does
+// not fit the full-form QP (formulation="full", nz = 24 N, m = 40 N) at
+// horizon 16, A (640, 384): 80 + 48 rows of 384 and 25 x 384 + 480 floats
+// more, 238,464 B, above the 232,448 B one CTA may have. The gather needs
+// 218,496 B there (one CTA per SM) and 76,608 B at A (448, 192) (two).
+// Horizons 24 and 32 (A (960, 576), (1280, 768)) do not fit, and the
+// launcher returns cudaErrorInvalidConfiguration. Measured (kernel_times.py,
+// NVIDIA H100 80GB HBM3, 700.00 W, B = 512, 25 iterations): 1.4775 ms at
+// A (448, 192), against 1.5103-1.5223 ms for the whole-partial exchange,
+// and 4.2834 ms at A (640, 384).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -85,8 +86,9 @@ namespace {
 
 constexpr int kThreads = 512;  // 16 warps
 constexpr int kCluster = 8;    // CTAs per cluster (scenario): faster than 4 (header)
-constexpr int kMinBlocks = 2;  // CTAs per SM (~87 KB of shared memory each)
+constexpr int kMinBlocks = 2;  // CTAs per SM at A (448, 192) (~77 KB each); one at (640, 384)
 constexpr int kLanesPerRow = 8;  // lanes that share one row's dot product
+static_assert(kLanesPerRow == kCluster, "lane l of a row sends its xt entry to CTA l");
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   v = (v < lo) ? lo : v;  // NaN passes through, as torch.clamp / jnp.clip
@@ -114,24 +116,19 @@ __host__ __device__ __forceinline__ Split split(int m, int n) {
   return s;
 }
 
-// columns of rhs each CTA owns in the gather layout
+// columns of rhs each CTA owns
 __host__ __device__ __forceinline__ int segment(int n) { return (n + kCluster - 1) / kCluster; }
 
 // Shared floats per CTA: rows of A and Minv, the row-group partials, the
-// push slots (broadcast: 8 x n per buffer; gather: 8 x segment per buffer),
-// q and x, rhs (broadcast: n, formed locally; gather: 2 x n, gathered), xt
-// (2 x n), and six per-row vectors.
-template <bool kGather>
+// push slots (2 x 8 x segment), q and x, rhs and xt (2 x n each), and six
+// per-row vectors.
 __host__ __device__ __forceinline__ size_t smem_floats(int m, int n) {
   const Split s = split(m, n);
-  const size_t slots = 2 * (size_t)kCluster * (kGather ? segment(n) : n);
-  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n + slots +
-         (kGather ? 6 : 5) * (size_t)n + 6 * (size_t)s.mr;
+  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n +
+         2 * (size_t)kCluster * segment(n) + 6 * (size_t)n + 6 * (size_t)s.mr;
 }
 
-// kGather: the gather layout (header), one CTA per SM; else broadcast, two.
-template <bool kGather>
-__global__ void __launch_bounds__(kThreads, kGather ? 1 : kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   const float* __restrict__ q, const float* __restrict__ l,
                   const float* __restrict__ u, const float* __restrict__ rho,
@@ -140,9 +137,10 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   float* __restrict__ zo, float* __restrict__ yo, int m, int n, int iters,
                   float sigma, float alpha, float oma) {
   extern __shared__ __align__(16) float smem[];
-  // [0, 1]: the C partials A_c' t of iteration it land in buffer it & 1;
-  // [2, 3]: the rows of xt; [4, 5] (gather): the owners' columns of rhs
-  constexpr int kBars = kGather ? 6 : 4;
+  // [0, 1]: this CTA's columns of the C partials A_c' t of iteration it
+  // land in buffer it & 1; [2, 3]: the rows of xt; [4, 5]: the owners'
+  // columns of rhs
+  constexpr int kBars = 6;
   __shared__ __align__(8) unsigned long long bars[kBars];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -153,19 +151,17 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   const int b = blockIdx.x / kCluster, tid = threadIdx.x, warp = tid >> 5;
   const int sub = tid & (kLanesPerRow - 1);
   const int rgroup = tid / kLanesPerRow, ngroups = kThreads / kLanesPerRow;
-  // gather: this CTA owns columns [c0, c0 + nown) of rhs
-  const int seg = segment(n), c0 = rank * seg;
-  const int nown = kGather ? max(0, min(n, c0 + seg) - c0) : n;
-  const int W = kGather ? seg : n;           // width of one CTA's push slot
+  // this CTA owns columns [c0, c0 + nown) of rhs
+  const int seg = segment(n), c0 = rank * seg, nown = max(0, min(n, c0 + seg) - c0);
 
   float* sA = smem;                          // ma x n: rows [a0, a1) of A
   float* sM = sA + (size_t)sp.mr * n;        // nk x n: rows [k0, k1) of Minv
   float* sred = sM + (size_t)sp.nr * n;      // G x n: row-group partials of A_r' t
-  float* srecv = sred + (size_t)G * n;       // 2 x kCluster x W: A_c' t from each CTA c
-  float* sq = srecv + 2 * (size_t)kCluster * W;  // n
+  float* srecv = sred + (size_t)G * n;       // 2 x kCluster x seg: A_c' t from each CTA c
+  float* sq = srecv + 2 * (size_t)kCluster * seg;  // n
   float* sx = sq + n;                        // n
-  float* srhs = sx + n;                      // n, or 2 x n gathered (kGather)
-  float* sxf = srhs + (kGather ? 2 : 1) * n;  // 2 x n: the whole xt, from its owners
+  float* srhs = sx + n;                      // 2 x n: the whole rhs, from its owners
+  float* sxf = srhs + 2 * n;                 // 2 x n: the whole xt, from its owners
   float* sl = sxf + 2 * n;                   // ma each: this CTA's rows
   float* su = sl + sp.mr;
   float* srho = su + sp.mr;
@@ -200,7 +196,7 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
     for (int it = 0; it < 2 && it < iters; ++it) {
       bar_arm(bar0 + 8 * it, recv_bytes);
       bar_arm(bar0 + 8 * (2 + it), xt_bytes);
-      if (kGather) bar_arm(bar0 + 8 * (4 + it), xt_bytes);
+      bar_arm(bar0 + 8 * (4 + it), xt_bytes);
     }
   }
   // every CTA of the cluster has started (its shared memory and barriers
@@ -212,8 +208,8 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   // sends, which come after the arm)
   auto wait = [&](int j, int it) {
     const uint32_t bar = bar0 + 8 * j;
-    // two CTAs share the SM: one warp polls, the others sleep in the block
-    // barrier instead of taking issue slots from the other CTA
+    // two CTAs may share the SM: one warp polls, the others sleep in the
+    // block barrier instead of taking issue slots from the other CTA
     if (warp == 0) bar_wait(bar, (it >> 1) & 1);
     __syncthreads();
     if (tid == 0 && it + 2 < iters) bar_arm(bar, j < 2 ? recv_bytes : xt_bytes);
@@ -221,14 +217,14 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
 
   for (int it = 0; it < iters; ++it) {
     const int buf = it & 1;
-    float* recv = srecv + (size_t)buf * kCluster * W;
+    float* recv = srecv + (size_t)buf * kCluster * seg;
     float* xf = sxf + (size_t)buf * n;
-    float* rhs = kGather ? srhs + (size_t)buf * n : srhs;
+    float* rhs = srhs + (size_t)buf * n;
     // 1. partial A_r' t: a thread per (row group, 4 columns)
     for (int e = tid; e < G * nc4; e += kThreads) {
       const int c4 = e % nc4, g = e / nc4;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 2
+#pragma unroll 1  // unrolled twice it was 4% slower at A (448, 192) (PERF.md)
       for (int i = g; i < ma; i += G) {
         const float4 a = reinterpret_cast<const float4*>(sA + (size_t)i * n)[c4];
         const float ti = st[i];
@@ -240,48 +236,29 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
       reinterpret_cast<float4*>(sred + (size_t)g * n)[c4] = acc;
     }
     __syncthreads();
-    // 2. sum the row groups and send A_r' t into slot `rank` of every CTA
-    //    (broadcast) or each column into slot `rank` of its owner (gather)
+    // 2. sum the row groups and send each column of A_r' t into slot `rank`
+    //    of its owner
     for (int k = tid; k < n; k += kThreads) {
       float s = sred[k];
       for (int g = 1; g < G; ++g) s += sred[(size_t)g * n + k];
-      if constexpr (kGather) {
-        const int c = k / seg;
-        const uint32_t slot = smem_u32(recv + (size_t)rank * seg + (k - c * seg));
-        st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
-      } else {
-        const uint32_t slot = smem_u32(recv + (size_t)rank * n + k);
-#pragma unroll
-        for (int c = 0; c < kCluster; ++c)
-          st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
-      }
+      const int c = k / seg;
+      const uint32_t slot = smem_u32(recv + (size_t)rank * seg + (k - c * seg));
+      st_async(map_rank(slot, c), s, map_rank(bar0 + 8 * buf, c));
     }
     wait(buf, it);
-    // 3. rhs = (sigma x - q) + sum over the cluster of A_c' t, in rank order:
-    //    every column here (broadcast), or this CTA's columns, sent into
-    //    every CTA's rhs (gather)
-    if constexpr (kGather) {
-      for (int j = tid; j < nown; j += kThreads) {
-        float s = recv[j];
+    // 3. this CTA's columns of rhs = (sigma x - q) + sum over the cluster of
+    //    A_c' t, in rank order, sent into every CTA's rhs: a thread per
+    //    (column, destination), each forming the same sum
+    for (int e = tid; e < nown * kCluster; e += kThreads) {
+      const int j = e / kCluster, dst = e % kCluster;
+      float s = recv[j];
 #pragma unroll
-        for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * seg + j];
-        const int k = c0 + j;
-        const float v = (sigma * sx[k] - sq[k]) + s;
-        const uint32_t slot = smem_u32(rhs + k);
-#pragma unroll
-        for (int c = 0; c < kCluster; ++c)
-          st_async(map_rank(slot, c), v, map_rank(bar0 + 8 * (4 + buf), c));
-      }
-      wait(4 + buf, it);
-    } else {
-      for (int k = tid; k < n; k += kThreads) {
-        float s = recv[k];
-#pragma unroll
-        for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * n + k];
-        rhs[k] = (sigma * sx[k] - sq[k]) + s;
-      }
-      __syncthreads();
+      for (int c = 1; c < kCluster; ++c) s += recv[(size_t)c * seg + j];
+      const int k = c0 + j;
+      const float v = (sigma * sx[k] - sq[k]) + s;
+      st_async(map_rank(smem_u32(rhs + k), dst), v, map_rank(bar0 + 8 * (4 + buf), dst));
     }
+    wait(4 + buf, it);
     // 4. this CTA's rows of xt = Minv rhs, 8 lanes per row, sent into every
     //    CTA's whole xt
     for (int r0 = 0; r0 < nk; r0 += ngroups) {  // uniform bound: every lane shuffles
@@ -296,12 +273,10 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
 #pragma unroll
       for (int off = kLanesPerRow / 2; off >= 1; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (r < nk && sub == 0) {
-        const uint32_t slot = smem_u32(xf + k0 + r);
-#pragma unroll
-        for (int c = 0; c < kCluster; ++c)
-          st_async(map_rank(slot, c), acc, map_rank(bar0 + 8 * (2 + buf), c));
-      }
+      // the butterfly leaves the same sum in all 8 lanes: lane `sub` sends
+      // it to CTA `sub`
+      if (r < nk)
+        st_async(map_rank(smem_u32(xf + k0 + r), sub), acc, map_rank(bar0 + 8 * (2 + buf), sub));
     }
     wait(2 + buf, it);
     // 5. x; A_r xt (8 lanes per row), relaxation, projection, dual step, next t
@@ -341,48 +316,25 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   }
 }
 
-// The launch of one layout, or only the question where it fits (batch <=
-// 0): *clusters is how many clusters can be resident at once, 0 if this
-// layout's CTA does not fit.
-template <bool kGather>
-cudaError_t launch_layout(const float* A, const float* Minv, const float* q, const float* l,
-                          const float* u, const float* rho, const float* x0, const float* z0,
-                          const float* y0, float* xo, float* zo, float* yo, int batch, int m,
-                          int n, int iters, float sigma, float alpha, float oma,
-                          cudaStream_t stream, int* clusters) {
+// Launches the kernel, or only asks where it fits (batch <= 0): *clusters is
+// how many clusters can be resident at once (the answer cached per shape), 0
+// if A's and Minv's rows do not fit one cluster.
+cudaError_t launch(const float* A, const float* Minv, const float* q, const float* l,
+                   const float* u, const float* rho, const float* x0, const float* z0,
+                   const float* y0, float* xo, float* zo, float* yo, int batch, int m, int n,
+                   int iters, float sigma, float alpha, float oma, cudaStream_t stream,
+                   int* clusters) {
+  *clusters = 0;
+  if (n % 4 != 0 || m <= 0 || n <= 0) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      batch, kCluster, kThreads, smem_floats<kGather>(m, n) * sizeof(float), stream, &attr);
-  cudaError_t err = resident_clusters(admm_dense_kernel<kGather>, cfg, clusters);
+      batch, kCluster, kThreads, smem_floats(m, n) * sizeof(float), stream, &attr);
+  cudaError_t err = resident_clusters(admm_dense_kernel, cfg, clusters);
   if (err != cudaSuccess || *clusters < 1 || batch <= 0) return err;
-  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel<kGather>, A, Minv, q, l, u, rho, x0, z0, y0,
-                           xo, zo, yo, m, n, iters, sigma, alpha, oma);
+  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, A, Minv, q, l, u, rho, x0, z0, y0, xo, zo,
+                           yo, m, n, iters, sigma, alpha, oma);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-// Launches the kernel in the first layout that fits (broadcast, then
-// gather; each one's occupancy answer is cached per shape), or only asks
-// (batch <= 0). *layout: 0 broadcast, 1 gather, -1 neither fits (then
-// *clusters is 0).
-int launch(const float* A, const float* Minv, const float* q, const float* l, const float* u,
-           const float* rho, const float* x0, const float* z0, const float* y0, float* xo,
-           float* zo, float* yo, int batch, int m, int n, int iters, float sigma, float alpha,
-           float oma, cudaStream_t stream, int* clusters, int* layout) {
-  *layout = -1;
-  *clusters = 0;
-  if (n % 4 != 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_layout<false>(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch,
-                                         m, n, iters, sigma, alpha, oma, stream, clusters);
-  if (err != cudaSuccess) return (int)err;
-  if (*clusters >= 1) {
-    *layout = 0;
-    return 0;
-  }
-  err = launch_layout<true>(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n, iters,
-                            sigma, alpha, oma, stream, clusters);
-  if (err == cudaSuccess && *clusters >= 1) *layout = 1;
-  return (int)err;
 }
 
 }  // namespace
@@ -396,25 +348,21 @@ extern "C" int admm_dense_f32(const float* A, const float* Minv, const float* q,
                               const float* y0, float* xo, float* zo, float* yo, int batch, int m,
                               int n, int iters, float sigma, float alpha, float oma,
                               cudaStream_t stream) {
-  int clusters = 0, layout = -1;
-  const int err = launch(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n, iters,
-                         sigma, alpha, oma, stream, &clusters, &layout);
-  return err == 0 && clusters < 1 ? (int)cudaErrorInvalidConfiguration : err;
+  int clusters = 0;
+  const cudaError_t err = launch(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n,
+                                 iters, sigma, alpha, oma, stream, &clusters);
+  return err == cudaSuccess && clusters < 1 ? (int)cudaErrorInvalidConfiguration : (int)err;
 }
 
 // The cluster admm_dense_f32 launches for A (m, n): its CTAs into *csize,
 // how many such clusters can be resident at once into *clusters (0: A does
-// not fit), its layout into *layout (0 broadcast, 1 gather, -1 none) and
-// its dynamic shared memory per CTA into *smem_bytes (0 if none fits).
-// Returns a cudaError_t as above.
-extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters, int* layout,
-                                int* smem_bytes) {
+// not fit) and its dynamic shared memory per CTA into *smem_bytes (0 if it
+// does not fit). Returns a cudaError_t as above.
+extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters, int* smem_bytes) {
   *csize = kCluster;
-  const int err = launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, nullptr, nullptr, 0, m, n, 0, 0.f, 0.f, 0.f, nullptr,
-                         clusters, layout);
-  *smem_bytes = *layout == 0   ? (int)(smem_floats<false>(m, n) * sizeof(float))
-                : *layout == 1 ? (int)(smem_floats<true>(m, n) * sizeof(float))
-                               : 0;
-  return err;
+  const cudaError_t err = launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, nullptr, nullptr, 0, m, n, 0, 0.f,
+                                 0.f, 0.f, nullptr, clusters);
+  *smem_bytes = *clusters >= 1 ? (int)(smem_floats(m, n) * sizeof(float)) : 0;
+  return (int)err;
 }

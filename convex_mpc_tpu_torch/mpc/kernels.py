@@ -17,8 +17,8 @@ Two kernels, each replacing a Pallas TPU kernel of
   horizon 16) and on the full form (A (640, 384)). The CUDA kernel is
   ``csrc/admm_dense.cu`` (a cluster of 8 CTAs per scenario that split the
   rows of A and Minv, both held in shared memory for the whole chunk, in
-  one of two layouts of the cluster's exchanges chosen per shape); the
-  plain version is the arithmetic of the TPU ``_kernel``.
+  each column of A' t summed by the CTA that owns it); the plain version is
+  the arithmetic of the TPU ``_kernel``.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each C launcher picks its cluster shape from
@@ -177,17 +177,15 @@ def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
     return x, z, y
 
 
-_DENSE_LAYOUTS = {0: "broadcast", 1: "gather", -1: None}
 _INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 
 
-def dense_cluster_shape(m: int, n: int) -> tuple[int, int, str | None, int]:
-    """The dense kernel's launch for A (m, n), as its C launcher chooses it:
-    (CTAs per cluster (8), clusters resident at once, the layout of the
-    cluster's exchanges ("broadcast", "gather"; None and 0 resident where
-    neither fits), dynamic shared bytes per CTA)."""
-    csize, resident, layout, smem = _cluster_shape("admm_dense", m, n, outputs=4)
-    return csize, resident, _DENSE_LAYOUTS[layout], smem
+def dense_cluster_shape(m: int, n: int) -> tuple[int, int, int]:
+    """The dense kernel's launch for A (m, n), as its C launcher sizes it:
+    (CTAs per cluster (8), clusters resident at once, dynamic shared bytes
+    per CTA); 0 resident and 0 bytes where A's and Minv's rows do not fit
+    one cluster."""
+    return _cluster_shape("admm_dense", m, n, outputs=3)
 
 
 def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
@@ -205,8 +203,8 @@ def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
     ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
     err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
     if err == _INVALID_CONFIGURATION:
-        raise RuntimeError(f"admm_iterations: A ({m}, {n}) and Minv ({n}, {n}) fit no "
-                           f"cluster layout of admm_dense.cu on this card (cudaError {err})")
+        raise RuntimeError(f"admm_iterations: A ({m}, {n}) and Minv ({n}, {n}) do not "
+                           f"fit one cluster of admm_dense.cu on this card (cudaError {err})")
     cuda_build.check(err, "admm_iterations")
     return xo, zo, yo
 

@@ -222,13 +222,14 @@ def test_tick_window_kernel_heterogeneous_battery():
 
 @pytest.mark.parametrize("iters", [1, 25, 50])
 def test_admm_dense_kernel_full_form_matches_plain(iters):
-    """A (640, 384): the full form's QP, in the gather layout."""
+    """A (640, 384): the full form's QP, one CTA per SM (A (448, 192) fits
+    two)."""
     _need_cuda()
     args = full_form_problem(8, torch.device("cuda"))
     assert tuple(args[0].shape) == (8, 640, 384)
-    csize, resident, layout, smem = TK.dense_cluster_shape(640, 384)
-    assert (csize, layout) == (8, "gather") and resident >= 1 and smem <= 232448
-    assert TK.dense_cluster_shape(448, 192)[2] == "broadcast"
+    csize, resident, smem = TK.dense_cluster_shape(640, 384)
+    assert csize == 8 and resident >= 1 and 116224 < smem <= 232448
+    assert 0 < TK.dense_cluster_shape(448, 192)[2] <= 116224
     before = TK.admm_iterations.launches
     out = TK.admm_iterations(*args, iters=iters)
     torch.cuda.synchronize()
@@ -239,11 +240,11 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
 
 
 def test_admm_dense_kernel_raises_where_nothing_fits():
-    """The full form at horizon 24, A (960, 576): no layout holds it; the
+    """The full form at horizon 24, A (960, 576): no cluster holds it; the
     wrapper raises with the shape and launches nothing."""
     _need_cuda()
     m, n = 960, 576
-    assert TK.dense_cluster_shape(m, n)[1:3] == (0, None)
+    assert TK.dense_cluster_shape(m, n)[1:] == (0, 0)
     args = [torch.zeros(s, device="cuda") for s in
             [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
     before = TK.admm_iterations.launches

@@ -19,8 +19,9 @@ snap-first compaction and with ``debug``. Bars, each where it is used:
 - the dense ADMM iterations on the full form's QP: the plain version with
   its sums in another order (A's columns permuted) within twice the plain
   version's error against the f64 iterations, the bar ``chip_smoke.py``
-  holds kernel 4 to at A (640, 384); entries outside rtol and atol 2e-4
-  are printed (that bar lies under this problem's f32 floor);
+  holds kernel 4 to at A (640, 384); after 50 iterations at least one
+  entry outside rtol and atol 2e-4 (that bar lies under this problem's
+  f32 floor);
 - ``solve_adaptive`` on the dense form: within 1e-5 x scale of the same QP
   in block form; with ``snap_first`` at B = 16: first-step forces within
   0.5% relative of JAX (tests/test_adaptive.py's bar) when the snap
@@ -41,7 +42,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import dense_f64_errors, full_form_problem  # noqa: E402
+from chip_smoke import (dense_f64_errors, full_form_problem, outside_2e4,  # noqa: E402
+                        permuted_plain)
 from torch_parity import assert_close_scaled, t, to_port  # noqa: E402
 
 from convex_mpc_tpu.control import gait as JG
@@ -299,20 +301,16 @@ def test_full_form_iterations_f32_order(iters):
     """The full-form QP of chip_smoke's start batch (B = 16, cold start,
     rho 0.1): the plain dense iterations and the same iterations with A's
     columns (and Minv's rows and columns) permuted differ only in the order
-    of their f32 sums. The permuted run meets the f64-relative bar; the
-    printed count of entries outside rtol and atol 2e-4 shows that the
-    element-wise bar is below the f32 floor here."""
+    of their f32 sums. The permuted run meets the f64-relative bar, and
+    after 50 iterations it has entries outside rtol and atol 2e-4 of the
+    plain run: the element-wise bar is below this problem's f32 floor."""
     args = full_form_problem(16, torch.device("cpu"))
-    A, Minv, q, l, u, rho, x, z, y = args
-    perm = torch.randperm(A.shape[-1], generator=torch.Generator().manual_seed(0))
-    inv = torch.argsort(perm)
-    permuted = [a.contiguous() for a in (A[:, :, perm], Minv[:, perm][:, :, perm], q[:, perm],
-                                         l, u, rho, x[:, perm], z, y)]
     ref = TK.admm_iterations_plain(*args, iters=iters)
-    xp, zp, yp = TK.admm_iterations_plain(*permuted, iters=iters)
-    out = (xp[:, inv], zp, yp)
-    outside = [int((~torch.isclose(a, b, rtol=2e-4, atol=2e-4)).sum()) for a, b in zip(out, ref)]
+    out = permuted_plain(args, iters)
+    outside = outside_2e4(out, ref)
     d = dense_f64_errors(out, ref, args, iters)
     print(f"full form, {iters} iterations: permuted vs plain, entries outside rtol and atol "
           f"2e-4 x/z/y {outside}; against f64 {d['e_kernel']} vs {d['e_plain']}")
     assert d["within_bar"], d
+    if iters == 50:
+        assert sum(outside) >= 1, outside
