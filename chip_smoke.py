@@ -66,7 +66,24 @@ Phases (any failure exits non-zero and prints no result line):
    production path with the fused tick window, ``gait_sweep`` (16 x 32) at
    B = 512 on the production path; settle cycles, then a timed window with
    the counters set to 0 (finite, 0.1 < z < 0.6, each kernel of its path
-   launched), then one B = 8 cycle on the card and on the CPU within 2.0 N.
+   launched), then one B = 8 cycle on the card and on the CPU within 2.0 N;
+9. scale-out (``parallel/mesh.py``) on one NCCL rank (NCCL refuses two
+   ranks on one card): ``init_distributed`` on ``nccl``, world size 1, a
+   free localhost port; ``shard_batch`` of phase 4's settled B = 512 batch
+   must equal it; one ``sharded_rollout_fn`` step of ``mpc_cycle_batch``,
+   its counters set to 0 just before it (both solve kernels must launch),
+   must equal the unsharded step bitwise, and its all-reduced mean height
+   the local mean; then ``dryrun(mesh)``;
+10. measurement: ``tools/torch_bench.py`` at B = 512 with one window per
+   configuration (its JSON line printed; each configuration's kernels
+   launched in its windows); ``tools/torch_realtime_latency.py``'s B = 1
+   cycle over one 16-cycle window with eager and with fused ticks, the
+   counters set to 0 just before each; ``utils.profiling.trace`` around
+   one fused B = 512 cycle and its device-busy share (the trace is written
+   under ``build/`` and deleted); ``profiling.time_fn`` of one kernel-2
+   chunk within 20% of ``cuda_ms``; phase 4's settled state through
+   ``utils.checkpoint`` (saved under ``build/``), bitwise equal when loaded,
+   and one cycle from it bitwise equal to one from the original.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -839,9 +856,9 @@ def dense_shape_row(dev, form: str, args) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
-def start_batch(B: int, dev, n: int = HORIZON):
-    """bench.py's start state: trot 3 Hz duty 0.6, vx = 0.5, x offsets;
-    ``n`` the MPC horizon of the solver state."""
+def start_batch(B: int, dev, n: int = HORIZON, x_spread: float = 0.02):
+    """bench.py's start state: trot 3 Hz duty 0.6, vx = 0.5, x offsets
+    across +-``x_spread`` m; ``n`` the MPC horizon of the solver state."""
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.models import dynamics as D
     from convex_mpc_tpu_torch.sim import engine as E
@@ -855,7 +872,7 @@ def start_batch(B: int, dev, n: int = HORIZON):
     state = E.init_state(dyn, n=n)._replace(plant=P.init_plant(dyn, contact=contact))
     state_b = E.broadcast_batch(state, B)
     q = state_b.plant.q.clone()
-    q[:, 0] += torch.linspace(-0.02, 0.02, B, device=dev)
+    q[:, 0] += torch.linspace(-x_spread, x_spread, B, device=dev)
     state_b = state_b._replace(plant=state_b.plant._replace(q=q))
     return dyn, gait_b, contact_b, sched_b, state_b
 
@@ -975,7 +992,7 @@ def main_path(dev) -> dict:
     batch = (gait_b, contact_b, sched_b, settled)
     card_vs_cpu("main path", E.mpc_cycle_batch, dyn, batch, 1, kw)
     card_vs_cpu("fused-tick path", E.mpc_cycle_batch, dyn, batch, 2, fkw)
-    return {"main": main, "fused": fused}
+    return {"main": main, "fused": fused, "settled": (dyn, *batch)}
 
 
 def fixed_path(dev) -> dict:
@@ -1124,6 +1141,162 @@ def scenario_paths(dev) -> dict:
     return out
 
 
+def _leaves(trees) -> list:
+    from convex_mpc_tpu_torch.utils import interop
+
+    return [leaf for t in trees for leaf in interop.tree_leaves(t)]
+
+
+def _bitwise(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _counted(need, fn):
+    """``fn()`` with every kernel's launch counter set to 0 just before it and
+    read just after; fails unless each kernel of ``need`` launched."""
+    kernels = _all_kernels()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    if min(launches[n] for n in need) <= 0:
+        fail(f"a kernel of the path was never launched: {launches}")
+    return out, launches
+
+
+def scale_out_path(dev, settled) -> None:
+    """Phase 9: ``parallel/mesh.py`` on one NCCL rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    from convex_mpc_tpu_torch.parallel import mesh as M
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    M.init_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                       rank=0)
+    try:
+        mesh = M.make_mesh()
+        print(f"scale-out: backend {dist.get_backend()}, mesh rank {mesh.rank} of {mesh.size} "
+              f"on {mesh.device}")
+        if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            fail("scale-out: the mesh is not one NCCL rank on the card")
+        dyn, batch = settled[0], tuple(settled[1:])
+        local = M.shard_batch(mesh, batch)
+        if not _bitwise(local, batch):
+            fail("scale-out: shard_batch of the B = 512 batch on one rank is not that batch")
+        kw = engine_kwargs_batched(DEFAULT_CONFIG)
+
+        def step(a):
+            return (*a[:3], E.mpc_cycle_batch(dyn, *a, **kw)[0])
+
+        ref = step(batch)
+        fn = M.sharded_rollout_fn(mesh, step, lambda a: {"height": a[3].plant.q[:, 2]})
+        (out, metrics), launches = _counted(
+            ("spd_inverse", "admm_iterations_structured"), lambda: fn(local))
+        h = out[3].plant.q[:, 2]
+        local_mean = h.sum() / h.shape[0]
+        same, mean_ok = _bitwise(out, ref), torch.equal(metrics["height"], local_mean)
+        print("scale-out step: " + json.dumps({
+            "bitwise_equal_to_unsharded": same, "mean_height": float(metrics["height"]),
+            "local_mean": float(local_mean), "launches": launches, "healthy": healthy(out[3])}))
+        if not (same and mean_ok and healthy(out[3])):
+            fail("scale-out: the sharded step differs from the unsharded step, or its "
+                 "all-reduced mean from the local mean")
+        M.dryrun(mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def measurement_path(dev, settled) -> dict:
+    """Phase 10: the bench, the B = 1 latency, a trace, ``time_fn`` and a
+    checkpoint round trip. Returns the bench's line."""
+    import shutil
+
+    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations_structured
+    from convex_mpc_tpu_torch.sim import engine as E
+    from convex_mpc_tpu_torch.utils import checkpoint, profiling
+    from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
+
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here / "tools"))
+    import torch_bench
+    import torch_realtime_latency as rt
+
+    bench = torch_bench.main(batch=B_MAIN, windows=1)
+    need = {"adaptive": ("spd_inverse", "admm_iterations_structured"),
+            "fixed150": ("admm_iterations",), "fixed400": ("admm_iterations",)}
+    for run, names in need.items():
+        if min(bench["launches_per_cycle"][run][n] for n in names) <= 0:
+            fail(f"bench {run}: a kernel of its path was never launched: "
+                 f"{bench['launches_per_cycle'][run]}")
+    if not bench["healthy"]:
+        fail("bench: the adaptive batch is not healthy after its window")
+
+    for fused in (False, True):
+        names = ("spd_inverse", "admm_iterations_structured") + (
+            ("run_ticks_fused",) if fused else ())
+        b1, launches = _counted(names, lambda: rt.b1_headline(dev, 20.833, windows=1,
+                                                               fused=fused))
+        print(f"realtime B=1, use_fused_ticks={fused}: " + json.dumps(dict(b1, launches=launches)))
+        if not b1["healthy"]:
+            fail(f"realtime B=1 (use_fused_ticks={fused}): the scenario is not healthy")
+
+    dyn, batch = settled[0], tuple(settled[1:])
+    kw = engine_kwargs_batched(DEFAULT_CONFIG)
+    fkw = dict(kw, use_fused_ticks=True)
+    E.mpc_cycle_batch(dyn, *batch, **fkw)  # the profiler's first use outside the trace
+    trace_dir = here / "build" / "chip_smoke_trace"
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir) as prof:
+        t0 = time.perf_counter()
+        E.mpc_cycle_batch(dyn, *batch, **fkw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = profiling.device_busy_ms(prof)
+    size = (trace_dir / "trace.json").stat().st_size
+    shutil.rmtree(trace_dir)
+    print("traced fused cycle: " + json.dumps({
+        "batch": B_MAIN, "cycle_ms": wall_ms, "device_busy_ms": busy,
+        "device_busy_share": busy / wall_ms, "trace_bytes": size}))
+    if not busy > 0.0:
+        fail("trace: no device interval in the traced cycle")
+
+    args = structured_problem(B_MAIN, 64, seed=11, dev=dev)
+    chunk = lambda: admm_iterations_structured(*args, iters=25)  # noqa: E731
+    t_fn = profiling.time_fn(chunk, reps=10) * 1e3
+    t_ev = cuda_ms(chunk)
+    print(f"time_fn of one kernel-2 chunk (B={B_MAIN}, nb=64, 25 iterations): {t_fn:.4f} ms, "
+          f"CUDA events {t_ev:.4f} ms, ratio {t_fn / t_ev:.4f}")
+    if abs(t_fn - t_ev) > 0.2 * t_ev:
+        fail("time_fn and CUDA events disagree by more than 20%")
+    del args
+
+    state = batch[3]
+    path = here / "build" / "chip_smoke_state.npz"
+    checkpoint.save_pytree(path, state)
+    size = path.stat().st_size
+    loaded = checkpoint.load_pytree(path, state)
+    path.unlink()
+    same = _bitwise((loaded,), (state,))
+    a = E.mpc_cycle_batch(dyn, *batch[:3], state, **kw)[0]
+    b = E.mpc_cycle_batch(dyn, *batch[:3], loaded, **kw)[0]
+    cycle_same = _bitwise((a,), (b,))
+    print(f"checkpoint of the settled B={B_MAIN} state ({size} B): loaded bitwise equal "
+          f"{same}, one cycle from it bitwise equal {cycle_same}")
+    if not (same and cycle_same):
+        fail("checkpoint: the loaded state or its next cycle differs from the original")
+    return bench
+
+
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
     printed them. Every entry function of every kernel must report its stack
@@ -1167,6 +1340,7 @@ def main() -> None:
         fail(f"the port's package is not beside this script: {exc}")
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(host_identity())
     ident = card_identity()
@@ -1189,6 +1363,8 @@ def main() -> None:
     paths["full"] = full_form_path(dev)
     torch.cuda.empty_cache()
     scenario_paths(dev)
+    scale_out_path(dev, paths["settled"])
+    measurement_path(dev, paths["settled"])
     # each kernel's launches from the run of its own path: kernel 4 has a row
     # for the condensed shape (legacy path) and one for the full form's
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
@@ -1200,6 +1376,7 @@ def main() -> None:
         k["launches"] = paths[run]["launches"][k["name"].split(" ")[0]]
     kernels = [{key: k[key] for key in order + (("shape",) if "shape" in k else ())}
                for k in kernels]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(ident)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

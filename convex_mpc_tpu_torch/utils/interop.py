@@ -35,11 +35,14 @@ def _registry() -> dict:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor/array leaf of a (nested) NamedTuple."""
+    """Apply ``fn`` to every tensor/array leaf of nested NamedTuples, plain
+    tuples and lists (``None`` stays ``None``)."""
     if tree is None:
         return None
     if hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 

@@ -29,7 +29,10 @@ iterations (``chip_smoke.dense_f64_errors``), and at A (960, 576) a raise,
 not a launch; the tick window also on
 ``chip_smoke.hetero_battery`` (each scenario's own gait and contact).
 The horizon-24 production cycle and the full-form legacy cycle at B = 8
-agree with the same cycles on the CPU within 2.0 N of applied force.
+agree with the same cycles on the CPU within 2.0 N of applied force. A CUDA
+state round-trips ``utils.checkpoint`` bitwise (and so does its next cycle),
+and ``utils.profiling.time_fn`` of a kernel-2 chunk is within 20% of its
+CUDA-event time.
 """
 
 from __future__ import annotations
@@ -269,3 +272,39 @@ def test_full_form_cycle_card_vs_cpu():
     s_cpu, _ = TE.mpc_cycle_fixed(cpu(dyn), *[cpu(a) for a in batch], **kw)
     du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
     assert du0 < 2.0, du0  # Newtons
+
+
+def test_checkpoint_roundtrip_cuda_state(tmp_path):
+    """A CUDA EngineState (B = 8, two cycles in) through utils.checkpoint:
+    loaded bitwise equal on the card, and one cycle from it bitwise equal to
+    one from the original."""
+    _need_cuda()
+    from convex_mpc_tpu_torch.utils import checkpoint
+
+    dyn, gait, contact, sched, state = start_batch(8, torch.device("cuda"))
+    kw = TCFG.engine_kwargs_batched(TCFG.DEFAULT_CONFIG)
+    for _ in range(2):
+        state, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
+    checkpoint.save_pytree(tmp_path / "state", state)
+    loaded = checkpoint.load_pytree(tmp_path / "state", state)
+    for a, b in zip(interop.tree_leaves(loaded), interop.tree_leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+    a, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
+    b, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, loaded, **kw)
+    for x, y in zip(interop.tree_leaves(a), interop.tree_leaves(b)):
+        assert torch.equal(x, y)
+
+
+def test_time_fn_matches_cuda_ms():
+    """utils.profiling.time_fn of one structured chunk (B = 512, nb = 64, 25
+    iterations) within 20% of the CUDA-event time."""
+    _need_cuda()
+    from chip_smoke import cuda_ms
+
+    from convex_mpc_tpu_torch.utils import profiling
+
+    args = structured_problem(512, 64, seed=11, dev=torch.device("cuda"))
+    chunk = lambda: TK.admm_iterations_structured(*args, iters=25)  # noqa: E731
+    t_fn = profiling.time_fn(chunk, reps=10) * 1e3
+    t_ev = cuda_ms(chunk)
+    assert abs(t_fn - t_ev) <= 0.2 * t_ev, (t_fn, t_ev)

@@ -1,7 +1,8 @@
 """The port's import rule: no file of ``convex_mpc_tpu_torch/``, not
-``chip_smoke.py``, ``kernel_times.py`` or ``tools/torch_ensemble_cert.py``
-imports JAX or the JAX package (not even its modules that use no JAX). An
-AST scan, so imports inside functions count too."""
+``chip_smoke.py``, ``kernel_times.py``, ``tools/torch_ensemble_cert.py``,
+``tools/torch_bench.py`` or ``tools/torch_realtime_latency.py`` imports JAX
+or the JAX package (not even its modules that use no JAX). An AST scan, so
+imports inside functions count too."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "tools" / "torch_ensemble_cert.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "tools" / "torch_ensemble_cert.py",
+    ROOT / "tools" / "torch_bench.py", ROOT / "tools" / "torch_realtime_latency.py"]
 BANNED = ("jax", "jaxlib", "convex_mpc_tpu")
 
 

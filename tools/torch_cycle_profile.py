@@ -5,8 +5,9 @@ Runs ``mpc_cycle_batch`` (``engine_kwargs_batched(DEFAULT_CONFIG)``; with
 kernel launch) from
 bench.py's start state (``chip_smoke.start_batch``, the state the smoke run
 times) at ``--batch`` scenarios, settles ``--settle``
-cycles, then traces ``--cycles`` cycles with ``torch.profiler`` (CPU and
-CUDA activities) and prints: the card's name and power limit, the wall
+cycles, then traces ``--cycles`` cycles with ``utils.profiling.trace``
+(``torch.profiler``, CPU and CUDA activities; the Chrome trace goes to
+``--trace-dir``) and prints: the card's name and power limit, the wall
 time per cycle, the device-busy
 share (the union of kernel and copy intervals over the traced wall time),
 operator counts per cycle, and the top operators by host time and by
@@ -29,23 +30,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 from chip_smoke import card_identity, start_batch  # noqa: E402
 from convex_mpc_tpu_torch.sim import engine as E  # noqa: E402
+from convex_mpc_tpu_torch.utils import profiling  # noqa: E402
 from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched  # noqa: E402
-
-
-def _busy_ms(events) -> float:
-    """Union length (ms) of device intervals in a profiler's kernel events."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
 
 
 def main() -> None:
@@ -56,6 +42,9 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--fused", action="store_true",
                     help="use_fused_ticks=True: the apply stage is the fused tick window")
+    ap.add_argument("--trace-dir", default="build/cycle_profile",
+                    help="where utils.profiling.trace writes trace.json (a B = 512 trace "
+                         "exceeds 64 MiB)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -67,8 +56,7 @@ def main() -> None:
         state, _ = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state, **kw)
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace(args.trace_dir) as prof:
         t0 = time.perf_counter()
         for _ in range(args.cycles):
             state, log = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state, **kw)
@@ -76,7 +64,7 @@ def main() -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     dev_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_ms(dev_events)
+    busy = profiling.device_busy_ms(prof)
     n_cpu_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                     and e.name.startswith("aten::"))
     print(f"{card_identity()}; B={B}; use_fused_ticks={args.fused}; {args.cycles} traced cycles")

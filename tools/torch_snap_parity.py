@@ -9,6 +9,8 @@ forces. Options:
 
 - ``--perturb N``: N more draws per row with q scaled by 1 + 1e-6 N(0, 1)
   (seeds 100, 101, ...), and the count of runs that reach the cap;
+  ``--first-draw K`` starts the draws at seed 100 + K and skips the
+  unperturbed run;
 - ``--f64``: both packages in float64 (JAX's Pallas inverse is f32-only, so
   both take their plain inverse and chunk);
 - ``--drop-fill``: JAX from a temporary copy whose compacted ladder has no
@@ -53,6 +55,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[0])
     ap.add_argument("--perturb", type=int, default=0)
+    ap.add_argument("--first-draw", type=int, default=0)
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--drop-fill", action="store_true")
     ap.add_argument("--trace", type=int, default=None)
@@ -150,7 +153,7 @@ def main() -> None:
     caps = [0, 0]
     runs = 0
     for r in a.rows:
-        for k in range(-1, a.perturb):
+        for k in range(-1 if a.first_draw == 0 else a.first_draw, a.first_draw + a.perturb):
             qp = qp16
             if k >= 0:
                 g = np.random.default_rng(100 + k)
