@@ -83,7 +83,18 @@ Phases (any failure exits non-zero and prints no result line):
    under ``build/`` and deleted); ``profiling.time_fn`` of one kernel-2
    chunk within 20% of ``cuda_ms``; phase 4's settled state through
    ``utils.checkpoint`` (saved under ``build/``), bitwise equal when loaded,
-   and one cycle from it bitwise equal to one from the original.
+   and one cycle from it bitwise equal to one from the original;
+11. force parity against the native f64 oracle (``native/qp_solver.cpp``,
+   built with ``g++``, whose version line is printed; a missing compiler
+   fails the run), each entry point run as a subprocess on the card, its
+   exit code and its own launch counts checked (its kernels must launch):
+   ``tools/torch_parity_sweep.py --n 50`` (kernel 4; at most
+   ``SWEEP_MAX_OVER`` instances over 2%, the JAX tool's own count on the
+   same instances), ``tools/torch_loop_parity.py --adaptive --seconds 2``
+   (100 cycles at B = 1, kernels 1 and 2; no cycle over 2%) and
+   ``examples/torch_trot_demo.py --schedule const --vx 0.5 --seconds 2``
+   (its final vx and z within ``DEMO_VX_BAND`` and ``DEMO_Z_BAND``); the
+   phase's time is printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -1297,6 +1308,81 @@ def measurement_path(dev, settled) -> dict:
     return bench
 
 
+# phase 11: force parity against the native f64 oracle, and the trot demo.
+# The sweep's bar is the JAX tool's own count on the same 50 instances: on
+# the CPU, tools/parity_sweep.py --n 50 --cpu leaves 1 of 50 over 2% (max
+# 2.051%), so the port may leave as many. The demo's bands are set around
+# the JAX demo's values on the CPU (examples/trot_demo.py --schedule const
+# --vx 0.5 --seconds 2 --cpu: vx_b 0.557, z 0.273), written down before the
+# first run on the card.
+SWEEP_MAX_OVER = 1
+DEMO_VX_BAND = (0.527, 0.587)
+DEMO_Z_BAND = (0.268, 0.278)
+
+
+def run_entry_point(argv: list, need: tuple, timeout: float) -> list:
+    """Run one of the port's entry points (a path of this checkout and its
+    arguments) as a subprocess on the card's default device; fails on a
+    non-zero exit, or unless each kernel of ``need`` launched in it (its own
+    ``launches:`` line, counted from 0 in that process). Returns its lines."""
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, *argv], cwd=here, capture_output=True, text=True,
+                             timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"{' '.join(argv)}: did not end within {timeout:.0f} s")
+    lines = res.stdout.splitlines()
+    print(f"$ python3 {' '.join(argv)}  (exit {res.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if res.returncode != 0:
+        print("\n".join(lines[-40:]) + "\n" + res.stderr[-4000:])
+        fail(f"{' '.join(argv)} exited {res.returncode}")
+    launched = [json.loads(l.split("launches: ", 1)[1]) for l in lines if "launches: " in l]
+    if not launched or min(launched[-1][n] for n in need) <= 0:
+        fail(f"{' '.join(argv)}: a kernel of its path was never launched: {launched}")
+    return lines
+
+
+def parity_path() -> None:
+    """Phase 11: the native oracle's build, the 50-instance force-parity sweep
+    (kernel 4), the 100-cycle adaptive loop parity (kernels 1 and 2) and the
+    2 s trot demo (kernels 1 and 2), each through its entry point."""
+    from convex_mpc_tpu_torch.utils import native_oracle
+
+    t0 = time.perf_counter()
+    try:
+        print(f"native oracle: {native_oracle.compiler_version()}")
+        lib = native_oracle.build()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+        fail(f"native oracle: {exc}")
+    print(f"native oracle built: {lib.relative_to(Path(__file__).resolve().parent)}")
+
+    lines = run_entry_point(["tools/torch_parity_sweep.py", "--n", "50",
+                             "--max-over", str(SWEEP_MAX_OVER)], ("admm_iterations",), 600)
+    for l in lines:
+        if l.startswith(("instances:", "first-step", "over the")):
+            print(f"  sweep: {l}")
+
+    lines = run_entry_point(["tools/torch_loop_parity.py", "--adaptive", "--seconds", "2"],
+                            ("spd_inverse", "admm_iterations_structured"), 600)
+    for l in lines:
+        if l.startswith(("height:", "in-loop", "applied-TORQUE", "solver iters", "over 2%")):
+            print(f"  loop: {l}")
+
+    lines = run_entry_point(["examples/torch_trot_demo.py", "--schedule", "const", "--vx", "0.5",
+                             "--seconds", "2"], ("spd_inverse", "admm_iterations_structured"),
+                            600)
+    row = json.loads(next(l for l in lines if l.startswith("[demo] phases: "))
+                     .split(": ", 1)[1])[0]
+    print(f"  demo: vx_b {row['vx_b']:.4f} (band {DEMO_VX_BAND}), z {row['z']:.4f} "
+          f"(band {DEMO_Z_BAND}), |att|max {row['att_max']:.4f}")
+    if not (DEMO_VX_BAND[0] <= row["vx_b"] <= DEMO_VX_BAND[1]
+            and DEMO_Z_BAND[0] <= row["z"] <= DEMO_Z_BAND[1]):
+        fail("trot demo: the final vx or z lies outside its band")
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
     printed them. Every entry function of every kernel must report its stack
@@ -1365,6 +1451,7 @@ def main() -> None:
     scenario_paths(dev)
     scale_out_path(dev, paths["settled"])
     measurement_path(dev, paths["settled"])
+    parity_path()
     # each kernel's launches from the run of its own path: kernel 4 has a row
     # for the condensed shape (legacy path) and one for the full form's
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",

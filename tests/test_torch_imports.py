@@ -1,8 +1,11 @@
 """The port's import rule: no file of ``convex_mpc_tpu_torch/``, not
 ``chip_smoke.py``, ``kernel_times.py``, ``tools/torch_ensemble_cert.py``,
-``tools/torch_bench.py`` or ``tools/torch_realtime_latency.py`` imports JAX
-or the JAX package (not even its modules that use no JAX). An AST scan, so
-imports inside functions count too."""
+``tools/torch_bench.py``, ``tools/torch_realtime_latency.py``, the two
+parity tools, ``tools/torch_time_dashboard.py`` or the two
+``examples/torch_*.py`` demos imports JAX or the JAX package (not even its
+modules that use no JAX). An AST scan, so imports inside functions count
+too. ``tests/qp_oracle.py`` (numpy and scipy only) is allowed: it is the
+independent oracle, kept outside both packages."""
 
 from __future__ import annotations
 
@@ -14,7 +17,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "tools" / "torch_ensemble_cert.py",
-    ROOT / "tools" / "torch_bench.py", ROOT / "tools" / "torch_realtime_latency.py"]
+    ROOT / "tools" / "torch_bench.py", ROOT / "tools" / "torch_realtime_latency.py",
+    ROOT / "tools" / "torch_parity_sweep.py", ROOT / "tools" / "torch_loop_parity.py",
+    ROOT / "tools" / "torch_time_dashboard.py", ROOT / "examples" / "torch_trot_demo.py",
+    ROOT / "examples" / "torch_mujoco_loop.py"]
 BANNED = ("jax", "jaxlib", "convex_mpc_tpu")
 
 
