@@ -17,9 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
    attractor-region rho (1e-4), and at the rho the solver and its warm
    carry reach below it (1e-5 and 1e-6: error and residual against the f64
    inverse at most twice the plain version's, as at 1e-4); the structured
-   ADMM chunk at B = 512,
-   nb = 64, 96 and 128, bitwise equal to its plain version after 25 and 150
-   iterations; the fused tick window (its launch shape printed) at B = 512
+   ADMM chunk at B = 512, nb = 40, 64, 96 and 128 (horizons 10-32; nb = 40
+   runs the kernel's generic instance), bitwise equal to its plain version
+   after 25 and 150 iterations, each size's cluster shape printed; the
+   fused tick window (its launch shape printed) at B = 512
    for 20 ticks (5e-3 per channel) and one tick (2e-4), at ragged B = 5,
    13 and 517 (one block per scenario, so no block is partly filled) and at
    B = 512 on a duty = 1 gait and on a heterogeneous battery (each
@@ -51,11 +52,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``solver_iters=150`` (``bench.py``'s curve point) for a short window, its
    counters set to 0 just before it; then one B = 8 cycle on the card and on
    the CPU within 2.0 N;
-6. horizons 24 and 32: ``mpc_cycle_batch`` at B = 512 with
+6. horizons 10, 24 and 32: ``mpc_cycle_batch`` at B = 512 with
    ``mpc_dt`` = gait period / horizon, 4 settle cycles and a 4-cycle
    window with the counters set to 0 just before it (both solve kernels
-   must launch), then one B = 8 cycle on the card and on the CPU within
-   2.0 N;
+   must launch; at horizon 10, nz = 120, the KKT inverse takes JAX's own
+   non-kernel branch and only the structured chunk must), then one B = 8
+   cycle on the card and on the CPU within 2.0 N;
 7. the full QP form: ``mpc_cycle_fixed(formulation="full",
    solver_iters=150)`` at B = 512 for a 4-cycle window, its counters set
    to 0 (kernel 4 must launch, on A (640, 384)), then one B = 8 cycle on
@@ -94,7 +96,17 @@ Phases (any failure exits non-zero and prints no result line):
    (100 cycles at B = 1, kernels 1 and 2; no cycle over 2%) and
    ``examples/torch_trot_demo.py --schedule const --vx 0.5 --seconds 2``
    (its final vx and z within ``DEMO_VX_BAND`` and ``DEMO_Z_BAND``); the
-   phase's time is printed.
+   phase's time is printed;
+12. the port's counterparts of the JAX tools (``TOOL_RUNS``), each through
+   its ``main(argv)`` in this process at a small size, its counters set to
+   0 just before and read just after (its path's kernels must launch):
+   the multi-config bench (8 configs x 64, every config upright), the
+   scaling bench (legacy at B = 512 and 2,048, adaptive at 512; each
+   healthy), the 1 s reference schedule, the cycle and solve ablations,
+   the solve and ticks profiles, the long sweep run twice (the second
+   resumes at chunk 1 of 2), the KKT microbench, the chained
+   ``spd_inverse`` bench and the bitwise witness (must pass); the phase's
+   time is printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -123,7 +135,7 @@ WINDOW = 16
 B_SMALL = 8
 FIXED_WINDOW = 4
 FIXED_ITERS = 150
-HORIZONS = (24, 32)
+HORIZONS = (10, 24, 32)
 H_SETTLE = 4
 H_WINDOW = 4
 
@@ -396,15 +408,17 @@ def check_spd_inverse(kkt: torch.Tensor) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
-def check_admm_chunk(dev) -> dict:
-    """The structured chunk at B_MAIN for nb = 64, 96, 128 (horizons 16, 24,
-    32): bitwise equal to its plain version after 25 and 150 iterations, and
-    its times per 25 iterations. Returns the kernel-table row of nb = 64."""
+def check_admm_chunk(dev) -> list:
+    """The structured chunk at B_MAIN for nb = 40, 64, 96, 128 (horizons 10,
+    16, 24, 32; nb = 40 is the generic instance, its fold width from nz):
+    bitwise equal to its plain version after 25 and 150 iterations, and its
+    times per 25 iterations. Returns the kernel-table rows of nb = 64 (the
+    main path) and nb = 40 (with a ``shape`` key)."""
     from convex_mpc_tpu_torch.mpc.kernels import (
         admm_iterations_structured, admm_iterations_structured_plain, structured_cluster_shape)
 
-    B, worst, row = B_MAIN, 0.0, None
-    for nb in (64, 96, 128):
+    B, worst, rows = B_MAIN, 0.0, {}
+    for nb in (40, 64, 96, 128):
         args = structured_problem(B, nb, seed=11, dev=dev)
         csize, resident = structured_cluster_shape(nb)
         print(f"admm_iterations_structured nb={nb}: clusters of {csize} CTAs, {resident} "
@@ -434,12 +448,14 @@ def check_admm_chunk(dev) -> dict:
         b_ms, b_by = bound(in_bytes + out_bytes, flops)
         print(f"admm_iterations_structured times B={B} nb={nb} (25 iters): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if nb == 64:  # the main path's size (horizon 16) for the kernel table
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if nb in (40, 64):  # horizon 10 and the main path (horizon 16): the kernel table
+            rows[nb] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms)
         del args
-    return dict(name="admm_iterations_structured", route="cuda",
-                source="convex_mpc_tpu_torch/csrc/admm_structured.cu",
-                replaces="convex_mpc_tpu/mpc/kernels.py:456", max_abs_err=worst, **row)
+    row = dict(route="cuda", source="convex_mpc_tpu_torch/csrc/admm_structured.cu",
+               replaces="convex_mpc_tpu/mpc/kernels.py:456", max_abs_err=worst)
+    return [dict(name="admm_iterations_structured", **row, **rows[64]),
+            dict(name="admm_iterations_structured (nb 40)", **row, **rows[40], shape=[40])]
 
 
 TickTraj = namedtuple("TickTraj", ["pos_des_world", "vel_des_world"])
@@ -917,6 +933,55 @@ def _all_kernels():
             "run_ticks_fused": run_ticks_fused, "admm_iterations": admm_iterations}
 
 
+def tool_device(tool: str, cpu: bool) -> torch.device:
+    """The device of a port tool that times the card: the card, or with ``cpu``
+    the CPU (every kernel's plain version). Raises ``SystemExit`` without a
+    card rather than falling back. Prints the card's name and power limit
+    (``device: cpu`` on the CPU) and sets every kernel's launch counter to 0."""
+    if not cpu and not torch.cuda.is_available():
+        raise SystemExit(f"{tool}: no CUDA device (it does not fall back to the CPU)")
+    print(f"device: {'cpu' if cpu else card_identity()}", flush=True)
+    for k in _all_kernels().values():
+        k.launches = 0
+    return torch.device("cpu" if cpu else "cuda")
+
+
+def print_launches() -> dict:
+    """Print and return every kernel's launches since the counters were last
+    set to 0, as the ``launches:`` line the port's entry points print."""
+    launches = {n: k.launches for n, k in _all_kernels().items()}
+    print("launches: " + json.dumps(launches), flush=True)
+    return launches
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def best_seconds(fn, dev, outer: int = 3) -> float:
+    """Best seconds of ``outer`` calls of ``fn()`` after one untimed call: CUDA
+    events around each call on the card (so the device's queue is in it), the
+    host clock on the CPU."""
+    fn()
+    best = float("inf")
+    for _ in range(outer):
+        sync(dev)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
 def drive(name, cycle, args, state, cycles, kw, profile=None):
     """``cycles`` timed cycles with every kernel's launch counter set to 0 just
     before and read just after. Returns (state, stats)."""
@@ -1023,14 +1088,17 @@ def fixed_path(dev) -> dict:
     return fixed
 
 
-def horizons_path(dev) -> None:
-    """Phase 6: the production cycle at horizons 24 and 32 (nz = 288, 384:
+def horizons_path(dev) -> dict:
+    """Phase 6: the production cycle at horizons 10, 24 and 32 (nz = 120, 288,
+    384: at nz = 120 the KKT inverse takes JAX's own non-kernel branch, nz %
+    32 != 0, and the structured chunk its generic instance; at 288 and 384
     ``spd_inverse`` with its working set on chip and in device memory, the
-    structured chunk in clusters of 2 and 3 CTAs), mpc_dt = gait period /
-    horizon."""
+    chunk in clusters of 2 and 3 CTAs), mpc_dt = gait period / horizon.
+    Returns each horizon's window, keyed ``horizon<n>``."""
     from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
 
+    out = {}
     for n in HORIZONS:
         kw = engine_kwargs_batched(EngineConfig(mpc=MpcConfig(horizon=n)))
         dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev, n)
@@ -1043,10 +1111,14 @@ def horizons_path(dev) -> None:
               f"B={B_MAIN} in {time.perf_counter() - t0:.2f} s")
         _, res = drive(f"horizon {n} path", E.mpc_cycle_batch, args, state, H_WINDOW, kw,
                        profile={})
-        if min(res["launches"][k] for k in ("spd_inverse", "admm_iterations_structured")) <= 0:
+        need = ("spd_inverse", "admm_iterations_structured") if 12 * n % 32 == 0 else (
+            "admm_iterations_structured",)
+        if min(res["launches"][k] for k in need) <= 0:
             fail(f"horizon {n}: a solve kernel was never launched: {res['launches']}")
         card_vs_cpu(f"horizon {n} path", E.mpc_cycle_batch, dyn,
                     (gait_b, contact_b, sched_b, state), 1, kw)
+        out[f"horizon{n}"] = res
+    return out
 
 
 def full_form_path(dev) -> dict:
@@ -1174,7 +1246,7 @@ def _counted(need, fn):
     out = fn()
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
-    if min(launches[n] for n in need) <= 0:
+    if any(launches[n] <= 0 for n in need):
         fail(f"a kernel of the path was never launched: {launches}")
     return out, launches
 
@@ -1383,6 +1455,94 @@ def parity_path() -> None:
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
+# phase 12: the port's counterparts of the JAX tools, each in this process at a
+# small size: (module in tools/, its arguments, the kernels its path must launch)
+ADAPTIVE = ("spd_inverse", "admm_iterations_structured")
+TOOL_RUNS = (
+    ("torch_multi_config_bench", ["--per-config", "64", "--chunk", "64", "--settle", "2",
+                                  "--reps", "1", "--json", "build/chip_smoke_tools/mc.json"],
+     ADAPTIVE),
+    ("torch_scaling_bench", ["--batches", "512,2048", "--reps", "1"], ("admm_iterations",)),
+    ("torch_scaling_bench", ["--adaptive", "--batches", "512", "--reps", "1"], ADAPTIVE),
+    ("torch_run_sched_batch", ["--tuned", "--seconds", "1"], ADAPTIVE),
+    ("torch_cycle_ablation", ["--reps", "1"], ADAPTIVE),
+    ("torch_solve_ablation", ["--reps", "1"], ("admm_iterations",)),
+    ("torch_cycle_profile", ["--what", "solve", "--batch", "64", "--settle", "2", "--cycles", "1",
+                             "--trace-dir", "build/chip_smoke_tools/profile"], ADAPTIVE),
+    ("torch_cycle_profile", ["--what", "ticks", "--batch", "64", "--settle", "2", "--cycles", "1",
+                             "--trace-dir", "build/chip_smoke_tools/profile"], ()),
+    ("torch_long_sweep", ["--batch", "64", "--seconds", "0.04", "--chunk-cycles", "2",
+                          "--out", "build/chip_smoke_tools/sweep"], ("admm_iterations",)),
+    ("torch_long_sweep", ["--batch", "64", "--seconds", "0.08", "--chunk-cycles", "2",
+                          "--out", "build/chip_smoke_tools/sweep"], ("admm_iterations",)),
+    ("torch_kkt_microbench", ["--reps", "1"], ("spd_inverse",)),
+    ("torch_spd_kernel_bench", [], ("spd_inverse",)),
+    ("torch_check_bitexact", [], ("admm_iterations_structured",)),
+)
+MULTI_CONFIG_KEYS = {"metric", "total_concurrent_scenarios", "aggregate_ms_per_cycle",
+                     "aggregate_solves_per_s", "all_upright", "configs"}
+ABLATION_KEYS = {"pre_ms", "refgen_ms", "qpbuild_ms", "solve_xla_twin_ms", "solve_ms",
+                 "solve_iters_mean", "ticks_ms", "full_ms", "legobs_plus_step_ms_per_cycle",
+                 "legobs_ms_per_cycle", "torques_ms_per_cycle", "chol_solve_ms_per_cycle",
+                 "batch", "reps", "backend", "solves_per_s_full"}
+
+
+def tools_path() -> None:
+    """Phase 12: each tool of ``TOOL_RUNS`` through its ``main(argv)``, its
+    counters set to 0 just before and read just after (each kernel of its
+    path must launch), and its result checked: every multi-config config
+    upright, every scaling batch healthy, the schedule finite, the ablations'
+    keys and finite rows, the sweep resumed at chunk 1 of 2, the bitwise
+    witness passing. The phase's time is printed."""
+    import importlib
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here / "tools"))
+    work = here / "build" / "chip_smoke_tools"
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    prev = os.getcwd()
+    os.chdir(here)
+    try:
+        for name, argv, need in TOOL_RUNS:
+            t0 = time.perf_counter()
+            tool = importlib.import_module(name)
+            out, launches = _counted(need, lambda: tool.main(argv))
+            print(f"phase 12: {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
+                  f"launches {json.dumps(launches)}", flush=True)
+            if name == "torch_multi_config_bench":
+                rates = {k: v["upright_rate"] for k, v in out["configs"].items()}
+                if not (MULTI_CONFIG_KEYS <= set(out) and len(rates) == 8
+                        and all(r == 1.0 for r in rates.values())):
+                    fail(f"{name}: keys {sorted(out)}, upright rates {rates}")
+            elif name == "torch_scaling_bench":
+                if len(out) != len(argv[argv.index("--batches") + 1].split(",")) or not all(
+                        r["healthy"] for r in out):
+                    fail(f"{name}: a batch failed or is not healthy: {out}")
+            elif name == "torch_run_sched_batch":
+                if not (out["finite"] and 0.1 < out["z"] < 0.6):
+                    fail(f"{name}: {out}")
+            elif name in ("torch_cycle_ablation", "torch_solve_ablation"):
+                keys = ABLATION_KEYS if name == "torch_cycle_ablation" else {
+                    "build_condensed", "per_refactorization", "per_iteration"}
+                vals = [v for v in out.values() if isinstance(v, float)]
+                if not (keys <= set(out) and all(np.isfinite(vals))):
+                    fail(f"{name}: keys {sorted(out)} or a row not finite")
+            elif name == "torch_cycle_profile":
+                if not out["device_busy_ms_per_rep"] > 0.0:
+                    fail(f"{name}: no device interval in the trace")
+            elif name == "torch_long_sweep" and argv[3] == "0.08":
+                if (out["start_chunk"], out["total_chunks"]) != (1, 2):
+                    fail(f"{name}: did not resume at chunk 1 of 2: {out}")
+            elif name == "torch_check_bitexact" and out != 0:
+                fail(f"{name}: the kernel and its plain version differ")
+    finally:
+        os.chdir(prev)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def ptxas_report(logs: dict) -> None:
     """Each kernel's registers, stack frame and spills as ``nvcc -Xptxas -v``
     printed them. Every entry function of every kernel must report its stack
@@ -1438,23 +1598,26 @@ def main() -> None:
     ptxas_report(logs)
 
     kkt = attractor_kkt(dev)
-    kernels = [check_spd_inverse(kkt), check_admm_chunk(dev), check_tick_window(dev),
+    kernels = [check_spd_inverse(kkt), *check_admm_chunk(dev), check_tick_window(dev),
                *check_admm_dense(dev)]
     del kkt
     torch.cuda.empty_cache()
 
     paths = main_path(dev)
     paths["fixed"] = fixed_path(dev)
-    horizons_path(dev)
+    paths.update(horizons_path(dev))
     paths["full"] = full_form_path(dev)
     torch.cuda.empty_cache()
     scenario_paths(dev)
     scale_out_path(dev, paths["settled"])
     measurement_path(dev, paths["settled"])
     parity_path()
+    tools_path()
     # each kernel's launches from the run of its own path: kernel 4 has a row
-    # for the condensed shape (legacy path) and one for the full form's
+    # for the condensed shape (legacy path) and one for the full form's,
+    # kernel 2 one for horizon 16 (the main path) and one for horizon 10
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
+            "admm_iterations_structured (nb 40)": "horizon10",
             "run_ticks_fused": "fused", "admm_iterations": "fixed"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -209,6 +209,8 @@ def _polish_core(o: PolishOps, a_lo, a_hi, reduced: bool):
         rhs_r = -torch.einsum("bnm,bn->bm", Pi, o.q + _bmv(o.p_dense, x_p))
         djr = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-30))
         Hn = H / (djr[:, :, None] * djr[:, None, :]) + 1e-6 * eye
+        # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
+        # (convex_mpc_tpu/mpc/admm.py:670-676), not a stand-in for the kernel
         if nz % 32 == 0:
             Hinv = spd_inverse(Hn)
         else:
@@ -336,6 +338,8 @@ def _factorize(setup: KktSetup, rho) -> torch.Tensor:
     M = kkt_matrix(setup, rho)
     if M.shape[-1] % 32 == 0:
         return spd_inverse(M)
+    # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
+    # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
     return spd_inverse_plain(M)
 
 

@@ -15,7 +15,8 @@ B = 133), a matrix failing at its first pivot and one failing only in its
 last panel all NaN and their neighbours finite; on the solver's KKT at
 attractor-region rho, spd_inverse's error and residual against the f64
 inverse at most twice the plain version's; the structured ADMM chunk
-bitwise equal to its plain version (nb = 64, 96, 128: horizons 16, 24, 32). As in
+bitwise equal to its plain version (nb = 40, 64, 96, 128: horizons 10, 16, 24, 32;
+nb = 40 is the kernel's generic instance). As in
 tests/test_torch_tick_fused.py and tests/test_torch_fixed.py: the fused tick
 window within 5e-3 per channel over 20 ticks and 2e-4 over one tick, masks
 equal (the tick battery comes from ``chip_smoke.tick_battery``, also on a
@@ -122,7 +123,7 @@ def test_spd_inverse_shape():
     assert (smem, scratch) == (0, 384 * 388 // 2) and ctas >= 1
 
 
-@pytest.mark.parametrize("nb", [64, 96, 128])
+@pytest.mark.parametrize("nb", [40, 64, 96, 128])
 @pytest.mark.parametrize("iters", [1, 25, 150])
 def test_admm_kernel_matches_plain(iters, nb):
     _need_cuda()

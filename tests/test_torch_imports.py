@@ -1,9 +1,10 @@
 """The port's import rule: no file of ``convex_mpc_tpu_torch/``, not
 ``chip_smoke.py``, ``kernel_times.py``, ``tools/torch_ensemble_cert.py``,
 ``tools/torch_bench.py``, ``tools/torch_realtime_latency.py``, the two
-parity tools, ``tools/torch_time_dashboard.py`` or the two
-``examples/torch_*.py`` demos imports JAX or the JAX package (not even its
-modules that use no JAX). An AST scan, so imports inside functions count
+parity tools, ``tools/torch_time_dashboard.py``, the two
+``examples/torch_*.py`` demos, ``tools/torch_cycle_profile.py`` or the
+eleven ports of the remaining JAX tools imports JAX or the JAX package (not
+even its modules that use no JAX). An AST scan, so imports inside functions count
 too. ``tests/qp_oracle.py`` (numpy and scipy only) is allowed: it is the
 independent oracle, kept outside both packages."""
 
@@ -20,7 +21,11 @@ FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "torch_bench.py", ROOT / "tools" / "torch_realtime_latency.py",
     ROOT / "tools" / "torch_parity_sweep.py", ROOT / "tools" / "torch_loop_parity.py",
     ROOT / "tools" / "torch_time_dashboard.py", ROOT / "examples" / "torch_trot_demo.py",
-    ROOT / "examples" / "torch_mujoco_loop.py"]
+    ROOT / "examples" / "torch_mujoco_loop.py", ROOT / "tools" / "torch_cycle_profile.py"] + [
+    ROOT / "tools" / f"torch_{name}.py" for name in (
+        "multi_config_bench", "scaling_bench", "run_sched_batch", "cycle_ablation",
+        "solve_ablation", "long_sweep", "reference_loop", "blocked_linalg", "kkt_microbench",
+        "spd_kernel_bench", "check_bitexact")]
 BANNED = ("jax", "jaxlib", "convex_mpc_tpu")
 
 
