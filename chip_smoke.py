@@ -30,14 +30,18 @@ Phases (any failure exits non-zero and prints no result line):
    contact branch within ``FLIP_MARGIN`` of its threshold are excused from
    the bar), with the eager ``engine._run_ticks`` window as its yardstick;
    the dense ADMM
-   iterations at B = 512, A (448, 192) (the condensed QP; rtol and atol
-   2e-4) and A (640, 384) (the full form's QP of the main path's start
-   batch; against the f64 iterations, within twice the plain version's
-   error: ``dense_f64_errors``; beside it, how many entries the plain
-   version with its sums reordered, ``permuted_plain``, has outside rtol
-   and atol 2e-4), for 25 and 50 iterations in clusters of 8 CTAs, each
-   shape's shared bytes and resident clusters printed, and A (960, 576)
-   (the full form at horizon 24) must raise. Before them, each kernel's
+   iterations at B = 512 on the legacy path's A at horizons 16, 24 and 32
+   (``DENSE_SHAPES``): the condensed QP's (448, 192), (672, 288), (896,
+   384) (rtol and atol 2e-4) and the full form's (640, 384), (960, 576),
+   (1280, 768) of the main path's start batch (against the f64 iterations,
+   within twice the plain version's error: ``dense_f64_errors``); beside
+   each, how many entries the plain version with its sums reordered,
+   ``permuted_plain``, has outside rtol and atol 2e-4; for 25 and 50
+   iterations in clusters of 8 CTAs, each shape's instance (A and Minv on
+   chip, A from device memory, or both), shared bytes and resident
+   clusters printed; the launch at A (280, 120) (horizon 10) reported, and
+   an n that is not a multiple of 4 (A (21, 30), B = 8, padded) within
+   2e-4 of the plain version. Before them, each kernel's
    ``ptxas -v`` lines; every kernel must show no stack frame and no
    spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
@@ -49,9 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
    versions), whose applied forces must agree within 2.0 N, unfused (one
    cycle) and fused (two cycles);
 5. the legacy path: ``mpc_cycle_fixed`` at B = 512 with
-   ``solver_iters=150`` (``bench.py``'s curve point) for a short window, its
-   counters set to 0 just before it; then one B = 8 cycle on the card and on
-   the CPU within 2.0 N;
+   ``solver_iters=150`` (``bench.py``'s curve point) at horizons 16, 24
+   and 32 (``FIXED_HORIZONS``; mpc_dt = gait period / horizon) for a
+   4-cycle window each, its counters set to 0 just before it (healthy,
+   kernel 4 launched on the solver state of A (448, 192), (672, 288),
+   (896, 384)); then one B = 8 cycle on the card and on the CPU within
+   2.0 N;
 6. horizons 10, 24 and 32: ``mpc_cycle_batch`` at B = 512 with
    ``mpc_dt`` = gait period / horizon, 4 settle cycles and a 4-cycle
    window with the counters set to 0 just before it (both solve kernels
@@ -59,9 +66,10 @@ Phases (any failure exits non-zero and prints no result line):
    non-kernel branch and only the structured chunk must), then one B = 8
    cycle on the card and on the CPU within 2.0 N;
 7. the full QP form: ``mpc_cycle_fixed(formulation="full",
-   solver_iters=150)`` at B = 512 for a 4-cycle window, its counters set
-   to 0 (kernel 4 must launch, on A (640, 384)), then one B = 8 cycle on
-   the card and on the CPU within 2.0 N;
+   solver_iters=150)`` at B = 512 at horizons 16, 24 and 32 for a 4-cycle
+   window each, its counters set to 0 (kernel 4 must launch, on A (640,
+   384), (960, 576), (1280, 768)), then one B = 8 cycle on the card and on
+   the CPU within 2.0 N;
 8. the scenario batches through ``scenarios.simulate_batch``
    (``SCENARIO_BATCHES``): ``velocity_sweep`` at B = 1,024 on the legacy
    path (300 iterations), ``friction_randomization`` at B = 512 on the
@@ -138,6 +146,13 @@ FIXED_ITERS = 150
 HORIZONS = (10, 24, 32)
 H_SETTLE = 4
 H_WINDOW = 4
+# the legacy cycle's horizons (phase 5 condensed, phase 7 full form)
+FIXED_HORIZONS = (16, 24, 32)
+# kernel 4's shapes on those paths, A (28 N, 12 N) condensed and (40 N, 24 N)
+# full form at horizon N: (form, N, the path whose window counts its launches)
+DENSE_SHAPES = (("condensed", 16, "fixed"), ("full form", 16, "full"),
+                ("condensed", 24, "fixed24"), ("condensed", 32, "fixed32"),
+                ("full form", 24, "full24"), ("full form", 32, "full32"))
 
 # the tick window's comparison may excuse at most MAX_FLIPS scenarios that took
 # another contact branch, each only if it flipped within FLIP_MARGIN (m) of the
@@ -729,19 +744,20 @@ def admm_dense_bmm(A, Minv, q, l, u, rho, x, z, y, iters, sigma=1e-6, alpha=1.6)
     return x, z, y
 
 
-def full_form_problem(B: int, dev, rho: float = 0.1):
-    """The dense iterations' operands on the full-form QP (A (640, 384)) of
-    the main path's start batch, as the legacy solver's first segment hands
+def full_form_problem(B: int, dev, rho: float = 0.1, horizon: int = HORIZON):
+    """The dense iterations' operands on the full-form QP (A (40 N, 24 N) at
+    horizon N: (640, 384) at 16) of the main path's start batch, mpc_dt the
+    gait period over the horizon, as the legacy solver's first segment hands
     them to the kernel: Ruiz-scaled A, q, l, u, the KKT inverse at ``rho``
     (equality rows weighted 1e3), and the cold start."""
     from convex_mpc_tpu_torch.control import reference as R
     from convex_mpc_tpu_torch.mpc import admm, qp
     from convex_mpc_tpu_torch.sim import engine as E
 
-    dyn, gait_b, _, sched_b, state = start_batch(B, dev)
+    dyn, gait_b, _, sched_b, state = start_batch(B, dev, horizon)
     obs = E.observe(dyn, state.plant, state.yaw_cont, state.yaw_prev, state.vel_filt)[0]
     traj = R.generate(state.refgen, gait_b, obs, E.lookup_command(sched_b, state.t), state.t,
-                      (1.0 / 3.0) / HORIZON, HORIZON)[0]
+                      (1.0 / 3.0) / horizon, horizon)[0]
     p0 = traj.x0[:, 0:3]
     x0_s = torch.cat([torch.zeros_like(p0), traj.x0[:, 3:]], dim=-1)
     x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] - p0[:, None, :], traj.x_ref[:, :, 3:]], dim=-1)
@@ -757,31 +773,65 @@ def full_form_problem(B: int, dev, rho: float = 0.1):
     return [a.contiguous() for a in (s.A, Minv, s.q, s.l, s.u, rho_vec, zero(n), zero(m), zero(m))]
 
 
+def random_dense_problem(B: int, m: int, n: int, seed: int, dev):
+    """A random problem of the dense iterations (tests/test_kernels.py's
+    ``make_problem``): a well-conditioned SPD Minv, rho > 0, z inside [l, u]."""
+    rng = np.random.default_rng(seed)
+    nrm = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    A = nrm(B, m, n) * 0.3
+    Q = nrm(B, n, n) * 0.1
+    Minv = np.einsum("bij,bkj->bik", Q, Q) + np.eye(n, dtype=np.float32) * 0.5
+    q, l, u = nrm(B, n), -np.abs(nrm(B, m)), np.abs(nrm(B, m))
+    rho = np.abs(nrm(B, m)) + 0.1
+    x = nrm(B, n) * 0.1
+    z = np.clip(nrm(B, m) * 0.1, l, u)
+    y = nrm(B, m) * 0.1
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+            for a in (A, Minv, q, l, u, rho, x, z, y)]
+
+
+def dense_problem_at(form: str, horizon: int, B: int, dev):
+    """Kernel 4's operands on the legacy path at ``horizon``: the condensed
+    QP (``dense_problem``, nb = 4 N) or the full form's
+    (``full_form_problem``)."""
+    if form == "condensed":
+        return dense_problem(B, 4 * horizon, seed=11, dev=dev)
+    return full_form_problem(B, dev, horizon=horizon)
+
+
 def check_admm_dense(dev) -> list:
-    """The dense iterations at B_MAIN, on the legacy condensed shape A (448,
-    192) and on the full form's A (640, 384), within rtol and atol 2e-4 of
-    the plain version after 25 and 50 iterations, and their times; the full
-    form at horizon 24, A (960, 576), must raise. Returns a kernel-table row
-    for each shape."""
-    rows = [dense_shape_row(dev, "condensed", dense_problem(B_MAIN, 64, seed=11, dev=dev)),
-            dense_shape_row(dev, "full form", full_form_problem(B_MAIN, dev))]
-    torch.cuda.empty_cache()
+    """The dense iterations at B_MAIN on each of ``DENSE_SHAPES``: the
+    condensed shapes within rtol and atol 2e-4 of the plain version, the
+    full form's within ``dense_f64_errors``' bar, after 25 and 50 iterations,
+    and their times; the launch at A (280, 120) (condensed, horizon 10)
+    reported; an n that is not a multiple of 4 (A (21, 30), B = 8) padded and
+    launched, within 2e-4 of the plain version. Returns a kernel-table row
+    for each of ``DENSE_SHAPES``."""
     from convex_mpc_tpu_torch.mpc import kernels as K
 
-    m, n = 960, 576
-    csize, resident, smem = K.dense_cluster_shape(m, n)
-    args = [torch.zeros(s, device=dev) for s in
-            [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
-    try:
-        K.admm_iterations(*args, iters=1)
-    except RuntimeError as exc:
-        print(f"admm_iterations (dense) A={(m, n)}: {resident} clusters resident, {smem} B; "
-              f"the wrapper raises: {exc}")
-    else:
-        fail(f"admm_iterations at A {(m, n)} launched: no cluster should hold it")
-    if resident or smem:
-        fail(f"admm_iterations at A {(m, n)}: the launcher reports {resident} clusters of "
-             f"{smem} B")
+    csize, resident, smem, inst = K.dense_cluster_shape(280, 120)
+    print(f"admm_iterations (dense) A=(280, 120): instance {inst}, {smem} B of shared memory "
+          f"per CTA, {resident} clusters of {csize} resident at once")
+    if resident < 1:
+        fail("admm_iterations: no instance holds A (280, 120)")
+    rows = []
+    for form, horizon, run in DENSE_SHAPES:
+        rows.append(dense_shape_row(dev, form, dense_problem_at(form, horizon, B_MAIN, dev), run))
+        torch.cuda.empty_cache()
+
+    args = random_dense_problem(B_SMALL, 21, 30, seed=3, dev=dev)
+    for iters in (1, 7):  # as tests/test_kernels.py: the random problem grows with iterations
+        before = K.admm_iterations.launches
+        out = K.admm_iterations(*args, iters=iters)
+        torch.cuda.synchronize()
+        ref = K.admm_iterations_plain(*args, iters=iters)
+        outside = outside_2e4(out, ref)
+        print(f"admm_iterations (dense) B={B_SMALL} A=(21, 30), n padded to 32, iters={iters}: "
+              f"max|k-plain| x/z/y = {[(a - b).abs().max().item() for a, b in zip(out, ref)]}, "
+              f"entries outside atol 2e-4 rtol 2e-4: {outside}")
+        if any(outside) or K.admm_iterations.launches != before + 1 or out[0].shape != ref[0].shape:
+            fail(f"admm_iterations at A (21, 30) ({iters} iterations): outside the bar "
+                 f"{outside}, or not one launch, or x of shape {tuple(out[0].shape)}")
     return rows
 
 
@@ -826,19 +876,20 @@ def permuted_plain(args, iters: int, seed: int = 0):
     return xp[:, inv], zp, yp
 
 
-def dense_shape_row(dev, form: str, args) -> dict:
-    """One shape of the dense iterations: its launch, the check against the
-    plain version, and the times of the kernel, the plain version and
-    torch.bmm iterations, beside the bound."""
+def dense_shape_row(dev, form: str, args, run: str) -> dict:
+    """One shape of the dense iterations: its launch (instance, shared bytes,
+    resident clusters), the check against the plain version, and the times
+    of the kernel, the plain version and torch.bmm iterations, beside the
+    bound. ``run`` names the path whose window counts its launches."""
     from convex_mpc_tpu_torch.mpc import kernels as K
 
     B, m, n = args[0].shape
-    csize, resident, smem = K.dense_cluster_shape(m, n)
+    csize, resident, smem, inst = K.dense_cluster_shape(m, n)
     if resident < 1:
-        fail(f"admm_iterations: no cluster of {csize} CTAs holds A {(m, n)} on the card")
-    print(f"admm_iterations (dense, {form}) A={(m, n)}: clusters of {csize} CTAs, "
-          f"{smem} B of shared memory per CTA, {resident} resident at once, "
-          f"{B / resident:.2f} waves at B={B}")
+        fail(f"admm_iterations: no instance of {csize} CTAs a cluster holds A {(m, n)} on the card")
+    print(f"admm_iterations (dense, {form}) A={(m, n)}: instance {inst} "
+          f"({K.DENSE_INSTANCES[inst]}), clusters of {csize} CTAs, {smem} B of shared memory "
+          f"per CTA, {resident} resident at once, {B / resident:.2f} waves at B={B}")
     worst = 0.0
     for iters in (25, 50):
         out = K.admm_iterations(*args, iters=iters)
@@ -850,6 +901,9 @@ def dense_shape_row(dev, form: str, args) -> dict:
               f"{errs}, entries outside atol 2e-4 rtol 2e-4: {outside}")
         if form == "condensed":
             ok = not any(outside)
+            print(f"  the plain version with its sums reordered has "
+                  f"{outside_2e4(permuted_plain(args, iters), ref)} entries outside rtol and "
+                  f"atol 2e-4 of the plain")
         else:
             d = dense_f64_errors(out, ref, args, iters)
             ok = d["within_bar"]
@@ -873,11 +927,12 @@ def dense_shape_row(dev, form: str, args) -> dict:
     b_ms, b_by = bound(in_bytes + out_bytes, flops)
     print(f"admm_iterations (dense, {form}) A={(m, n)} times (25 iters): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    name = "admm_iterations" if form == "condensed" else f"admm_iterations ({form}, A {m}x{n})"
+    name = ("admm_iterations" if (form, m, n) == ("condensed", 448, 192)
+            else f"admm_iterations ({form}, A {m}x{n})")
     return dict(name=name, route="cuda", source="convex_mpc_tpu_torch/csrc/admm_dense.cu",
                 replaces="convex_mpc_tpu/mpc/kernels.py:186",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=[m, n])
+                library_ms=lib_ms, shape=[m, n], run=run, instance=K.DENSE_INSTANCES[inst])
 
 
 # ---------------------------------------------------------------------------
@@ -1071,21 +1126,50 @@ def main_path(dev) -> dict:
     return {"main": main, "fused": fused, "settled": (dyn, *batch)}
 
 
-def fixed_path(dev) -> dict:
-    """Phase 5: the legacy fixed-segment solver's cycle."""
+def fixed_kwargs(n: int, formulation: str = "condensed") -> dict:
+    """The legacy cycle's keywords at horizon ``n``: ``solver_iters=FIXED_ITERS``
+    and mpc_dt = gait period / horizon (``EngineConfig.mpc_dt``, as phase 6)."""
+    from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig
+
+    kw = dict(n=n, mpc_dt=EngineConfig(mpc=MpcConfig(horizon=n)).mpc_dt,
+              solver_iters=FIXED_ITERS)
+    return kw if formulation == "condensed" else dict(kw, formulation=formulation)
+
+
+def legacy_window(dev, name: str, n: int, formulation: str) -> dict:
+    """The legacy cycle at horizon ``n``: one warm-up cycle, a FIXED_WINDOW
+    window with the counters set to 0 just before it (kernel 4 must launch,
+    on the solver state of A's shape: (B, n_vars), (B, n_rows)), then one
+    B = 8 cycle on the card and on the CPU within 2.0 N."""
+    from convex_mpc_tpu_torch.mpc import condensed, qp
     from convex_mpc_tpu_torch.sim import engine as E
 
-    kw = dict(solver_iters=FIXED_ITERS)
-    dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev)
+    kw = fixed_kwargs(n, formulation)
+    dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev, n)
+    if formulation == "full":
+        full = E.init_state(dyn, n=n, formulation="full").solver
+        state = state._replace(solver=E.broadcast_batch(full, B_MAIN))
+    mod = qp if formulation == "full" else condensed
+    want = (mod.n_vars(n), mod.n_rows(n))
     args = (dyn, gait_b, contact_b, sched_b)
     E.mpc_cycle_fixed(*args, state, **kw)  # first use: allocator and library warm-up
-    _, fixed = drive("legacy fixed-segment path", E.mpc_cycle_fixed, args, state, FIXED_WINDOW,
-                     kw)
-    if fixed["launches"]["admm_iterations"] <= 0:
-        fail(f"the legacy path never launched admm_iterations: {fixed['launches']}")
-    card_vs_cpu("legacy fixed-segment path", E.mpc_cycle_fixed, dyn,
-                (gait_b, contact_b, sched_b, state), 1, kw)
-    return fixed
+    out_state, res = drive(name, E.mpc_cycle_fixed, args, state, FIXED_WINDOW, kw)
+    shapes = (tuple(out_state.solver.x.shape), tuple(out_state.solver.z.shape))
+    if res["launches"]["admm_iterations"] <= 0 or shapes != ((B_MAIN, want[0]), (B_MAIN, want[1])):
+        fail(f"{name}: admm_iterations launched {res['launches']['admm_iterations']} times on "
+             f"solver state {shapes}, A {want[::-1]} expected")
+    card_vs_cpu(name, E.mpc_cycle_fixed, dyn, (gait_b, contact_b, sched_b, state), 1, kw)
+    torch.cuda.empty_cache()
+    return res
+
+
+def fixed_path(dev) -> dict:
+    """Phase 5: the legacy fixed-segment solver's cycle at ``FIXED_HORIZONS``
+    (A (448, 192), (672, 288), (896, 384)); keyed ``fixed``, ``fixed24``,
+    ``fixed32``."""
+    return {"fixed" + ("" if n == HORIZON else str(n)): legacy_window(
+        dev, "legacy fixed-segment path" + ("" if n == HORIZON else f", horizon {n}"), n,
+        "condensed") for n in FIXED_HORIZONS}
 
 
 def horizons_path(dev) -> dict:
@@ -1122,28 +1206,12 @@ def horizons_path(dev) -> dict:
 
 
 def full_form_path(dev) -> dict:
-    """Phase 7: the legacy cycle on the full-form QP (``formulation="full"``,
-    A (640, 384) at horizon 16): one warm-up cycle, a FIXED_WINDOW window
-    with the counters set to 0 (kernel 4 must launch, on the full form's
-    shapes), then one B = 8 cycle on the card and on the CPU within 2.0 N."""
-    from convex_mpc_tpu_torch.mpc import qp
-    from convex_mpc_tpu_torch.sim import engine as E
-
-    kw = dict(solver_iters=FIXED_ITERS, formulation="full")
-    dyn, gait_b, contact_b, sched_b, state = start_batch(B_MAIN, dev)
-    full = E.broadcast_batch(E.init_state(dyn, n=HORIZON, formulation="full").solver, B_MAIN)
-    state = state._replace(solver=full)
-    args = (dyn, gait_b, contact_b, sched_b)
-    E.mpc_cycle_fixed(*args, state, **kw)  # first use: allocator and library warm-up
-    out_state, res = drive("full-form path", E.mpc_cycle_fixed, args, state, FIXED_WINDOW, kw)
-    shapes = (tuple(out_state.solver.x.shape), tuple(out_state.solver.z.shape))
-    if res["launches"]["admm_iterations"] <= 0 or shapes != (
-            (B_MAIN, qp.n_vars(HORIZON)), (B_MAIN, qp.n_rows(HORIZON))):
-        fail(f"full-form path: admm_iterations launched {res['launches']['admm_iterations']} "
-             f"times on solver state {shapes}")
-    card_vs_cpu("full-form path", E.mpc_cycle_fixed, dyn, (gait_b, contact_b, sched_b, state),
-                1, kw)
-    return res
+    """Phase 7: the legacy cycle on the full-form QP (``formulation="full"``)
+    at ``FIXED_HORIZONS`` (A (640, 384), (960, 576), (1280, 768)); keyed
+    ``full``, ``full24``, ``full32``."""
+    return {"full" + ("" if n == HORIZON else str(n)): legacy_window(
+        dev, "full-form path" + ("" if n == HORIZON else f", horizon {n}"), n, "full")
+        for n in FIXED_HORIZONS}
 
 
 # phase 8: the scenario batches (BASELINE.json configs 3-5): (name, size,
@@ -1604,9 +1672,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     paths = main_path(dev)
-    paths["fixed"] = fixed_path(dev)
+    paths.update(fixed_path(dev))
     paths.update(horizons_path(dev))
-    paths["full"] = full_form_path(dev)
+    paths.update(full_form_path(dev))
     torch.cuda.empty_cache()
     scenario_paths(dev)
     scale_out_path(dev, paths["settled"])
@@ -1614,17 +1682,17 @@ def main() -> None:
     parity_path()
     tools_path()
     # each kernel's launches from the run of its own path: kernel 4 has a row
-    # for the condensed shape (legacy path) and one for the full form's,
-    # kernel 2 one for horizon 16 (the main path) and one for horizon 10
+    # per shape (its row's ``run``: the legacy and full-form windows at
+    # horizons 16, 24, 32), kernel 2 one for horizon 16 (the main path) and
+    # one for horizon 10
     runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
-            "admm_iterations_structured (nb 40)": "horizon10",
-            "run_ticks_fused": "fused", "admm_iterations": "fixed"}
+            "admm_iterations_structured (nb 40)": "horizon10", "run_ticks_fused": "fused"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        run = runs.get(k["name"], "full")
+        run = k.get("run") or runs[k["name"]]
         k["launches"] = paths[run]["launches"][k["name"].split(" ")[0]]
-    kernels = [{key: k[key] for key in order + (("shape",) if "shape" in k else ())}
+    kernels = [{key: k[key] for key in order + ("shape", "instance") if key in k}
                for k in kernels]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(ident)

@@ -1,11 +1,13 @@
 // Dense-A ADMM iterations for Hopper (sm_90a): `iters` over-relaxed ADMM
 // steps per scenario against a dense constraint matrix A, one thread-block
-// cluster of C CTAs per scenario, A and Minv held on chip across it.
+// cluster of 8 CTAs per scenario, A and Minv held on chip across it where
+// their rows fit (below: "Where the rows live").
 //
 // Replaces the TPU kernel convex_mpc_tpu/mpc/kernels.py::admm_iterations
 // (_kernel), the iteration engine of the legacy fixed-segment solver
-// admm.solve (mpc_cycle_fixed; B = 512, A (448, 192), Minv (192, 192)). The
-// plain PyTorch version is mpc/kernels.py::admm_iterations_plain.
+// admm.solve (mpc_cycle_fixed; B = 512, A (448, 192), Minv (192, 192) at
+// horizon 16, up to A (1280, 768) on the full form at horizon 32). The plain
+// PyTorch version is mpc/kernels.py::admm_iterations_plain.
 //
 // Per iteration: t = rho z - y; rhs = (sigma x - q) + A' t; xt = Minv rhs;
 // x <- alpha xt + (1 - alpha) x; ax = alpha A xt + (1 - alpha) z;
@@ -59,7 +61,7 @@
 // (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, 25 iterations, B = 512):
 // 1.5176 ms in clusters of 8 and 1.5755 ms in clusters of 4, against
 // 5.3118 ms for torch.bmm and the 0.0811 ms bound. So this file launches
-// clusters of 8 only, and raises where A's and Minv's rows do not fit.
+// clusters of 8 only.
 //
 // The owners' gather (step 2) replaced an exchange in which every CTA
 // received every CTA's whole partial (2 x 8 x n floats of slots) and summed
@@ -68,11 +70,42 @@
 // horizon 16, A (640, 384): 80 + 48 rows of 384 and 25 x 384 + 480 floats
 // more, 238,464 B, above the 232,448 B one CTA may have. The gather needs
 // 218,496 B there (one CTA per SM) and 76,608 B at A (448, 192) (two).
-// Horizons 24 and 32 (A (960, 576), (1280, 768)) do not fit, and the
-// launcher returns cudaErrorInvalidConfiguration. Measured (kernel_times.py,
-// NVIDIA H100 80GB HBM3, 700.00 W, B = 512, 25 iterations): 1.4775 ms at
-// A (448, 192), against 1.5103-1.5223 ms for the whole-partial exchange,
-// and 4.2834 ms at A (640, 384).
+// Measured (kernel_times.py, NVIDIA H100 80GB HBM3, 700.00 W, B = 512, 25
+// iterations): 1.4775 ms at A (448, 192), against 1.5103-1.5223 ms for the
+// whole-partial exchange, and 4.2834 ms at A (640, 384).
+//
+// Where the rows live. The kernel is one template, `admm_dense_kernel<P>`,
+// whose parameter says where the A' t, Minv rhs and A xt loops read each
+// CTA's rows of A and of Minv; nothing else differs between its instances:
+//  P = kOnChip:     both in shared memory, as above;
+//  P = kStreamA:    A read in place from device memory (float4 __ldg, the
+//                   read-only path), Minv in shared memory;
+//  P = kStreamBoth: both read in place from device memory.
+// The launcher takes the first instance whose shared bytes (smem_floats,
+// the streamed rows left out) fit one CTA with a cluster resident. By shape
+// (horizon N: condensed A (28 N, 12 N), full form A (40 N, 24 N)):
+//   A (280, 120), (448, 192), (672, 288), (640, 384): kOnChip, 36,840 /
+//     76,608 / 157,536 / 218,496 B a CTA;
+//   A (896, 384) (condensed, horizon 32): kStreamA, 96,384 B, two CTAs per
+//     SM (268,416 B on chip);
+//   A (960, 576) (full, horizon 24): kStreamA, 194,112 B, one CTA per SM;
+//   A (1280, 768) (full, horizon 32): kStreamBoth, 34,560 B (Minv's 96 rows
+//     of 768 alone are 294,912 B).
+// A streamed row is read twice per iteration (steps 1 and 5) and a streamed
+// Minv row once, from L2 where the resident clusters' operands fit its 50
+// MB (A (960, 576): 2.2 MB of A a scenario) and from HBM where they do not
+// (A (1280, 768): 6.3 MB of A and Minv a scenario). Step 1 unrolls its row
+// loop four times in the streamed instances, so that each thread has four
+// loads in flight. Measured (kernel_times.py against the same tree with
+// `#pragma unroll 1` there, in one call, twice each; NVIDIA H100 80GB HBM3,
+// 700.00 W; B = 512, 25 iterations): 6.3276-6.3333 -> 5.7043-5.7136 ms at
+// A (896, 384), 14.2831-14.2906 -> 11.1200-11.1216 at (960, 576),
+// 44.8891-44.9208 -> 41.4102-41.4259 at (1280, 768), the same sums in the
+// same order (unrolling the row loops of steps 4 and 5 four times as well
+// made ptxas spill in kStreamBoth). At (1280, 768) the streamed bytes (A twice
+// and Minv once an iteration, 131 GB per chunk) leave HBM at ~3.2 TB/s:
+// reading each A row once an iteration is the next step there. Times of
+// every shape in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -89,6 +122,19 @@ constexpr int kCluster = 8;    // CTAs per cluster (scenario): faster than 4 (he
 constexpr int kMinBlocks = 2;  // CTAs per SM at A (448, 192) (~77 KB each); one at (640, 384)
 constexpr int kLanesPerRow = 8;  // lanes that share one row's dot product
 static_assert(kLanesPerRow == kCluster, "lane l of a row sends its xt entry to CTA l");
+
+// where a CTA's rows of A and Minv are read (header: "Where the rows live")
+constexpr int kOnChip = 0, kStreamA = 1, kStreamBoth = 2, kPlaces = 3;
+
+// the float4 at index i of a row: from device memory through the read-only
+// path, or from shared memory
+template <bool kDevice>
+__device__ __forceinline__ float4 row4(const float* row, int i) {
+  if constexpr (kDevice)
+    return __ldg(reinterpret_cast<const float4*>(row) + i);
+  else
+    return reinterpret_cast<const float4*>(row)[i];
+}
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   v = (v < lo) ? lo : v;  // NaN passes through, as torch.clamp / jnp.clip
@@ -119,15 +165,17 @@ __host__ __device__ __forceinline__ Split split(int m, int n) {
 // columns of rhs each CTA owns
 __host__ __device__ __forceinline__ int segment(int n) { return (n + kCluster - 1) / kCluster; }
 
-// Shared floats per CTA: rows of A and Minv, the row-group partials, the
-// push slots (2 x 8 x segment), q and x, rhs and xt (2 x n each), and six
-// per-row vectors.
-__host__ __device__ __forceinline__ size_t smem_floats(int m, int n) {
+// Shared floats per CTA of instance `place`: rows of A (kOnChip only) and of
+// Minv (not kStreamBoth), the row-group partials, the push slots (2 x 8 x
+// segment), q and x, rhs and xt (2 x n each), and six per-row vectors.
+__host__ __device__ __forceinline__ size_t smem_floats(int m, int n, int place) {
   const Split s = split(m, n);
-  return (size_t)s.mr * n + (size_t)s.nr * n + (size_t)s.groups * n +
+  return (place == kOnChip ? (size_t)s.mr * n : 0) +
+         (place != kStreamBoth ? (size_t)s.nr * n : 0) + (size_t)s.groups * n +
          2 * (size_t)kCluster * segment(n) + 6 * (size_t)n + 6 * (size_t)s.mr;
 }
 
+template <int P>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
                   const float* __restrict__ q, const float* __restrict__ l,
@@ -154,9 +202,10 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   // this CTA owns columns [c0, c0 + nown) of rhs
   const int seg = segment(n), c0 = rank * seg, nown = max(0, min(n, c0 + seg) - c0);
 
-  float* sA = smem;                          // ma x n: rows [a0, a1) of A
-  float* sM = sA + (size_t)sp.mr * n;        // nk x n: rows [k0, k1) of Minv
-  float* sred = sM + (size_t)sp.nr * n;      // G x n: row-group partials of A_r' t
+  constexpr bool kADev = P != kOnChip, kMDev = P == kStreamBoth;
+  float* sA = smem;                          // ma x n: rows [a0, a1) of A (kOnChip)
+  float* sM = sA + (kADev ? 0 : (size_t)sp.mr * n);  // nk x n: rows [k0, k1) of Minv
+  float* sred = sM + (kMDev ? 0 : (size_t)sp.nr * n);  // G x n: row-group partials of A_r' t
   float* srecv = sred + (size_t)G * n;       // 2 x kCluster x seg: A_c' t from each CTA c
   float* sq = srecv + 2 * (size_t)kCluster * seg;  // n
   float* sx = sq + n;                        // n
@@ -170,10 +219,19 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   float* st = sy + sp.mr;
 
   const size_t bn = (size_t)b * n, bm = (size_t)b * m + a0;
-  const float4* Ag = reinterpret_cast<const float4*>(A + ((size_t)b * m + a0) * n);
-  for (int i = tid; i < ma * nc4; i += kThreads) reinterpret_cast<float4*>(sA)[i] = Ag[i];
-  const float4* Mg = reinterpret_cast<const float4*>(Minv + ((size_t)b * n + k0) * n);
-  for (int i = tid; i < nk * nc4; i += kThreads) reinterpret_cast<float4*>(sM)[i] = Mg[i];
+  const float* Ad = A + ((size_t)b * m + a0) * n;      // this CTA's rows in device memory
+  const float* Md = Minv + ((size_t)b * n + k0) * n;
+  if constexpr (!kADev) {
+    const float4* Ag = reinterpret_cast<const float4*>(Ad);
+    for (int i = tid; i < ma * nc4; i += kThreads) reinterpret_cast<float4*>(sA)[i] = Ag[i];
+  }
+  if constexpr (!kMDev) {
+    const float4* Mg = reinterpret_cast<const float4*>(Md);
+    for (int i = tid; i < nk * nc4; i += kThreads) reinterpret_cast<float4*>(sM)[i] = Mg[i];
+  }
+  // the rows that steps 1, 4 and 5 read
+  const float* Ar = kADev ? Ad : sA;
+  const float* Mrows = kMDev ? Md : sM;
   for (int i = tid; i < n; i += kThreads) {
     sq[i] = q[bn + i];
     sx[i] = x0[bn + i];
@@ -224,9 +282,11 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
     for (int e = tid; e < G * nc4; e += kThreads) {
       const int c4 = e % nc4, g = e / nc4;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 1  // unrolled twice it was 4% slower at A (448, 192) (PERF.md)
+// on chip not unrolled: unrolled twice it was 4% slower at A (448, 192)
+      // (PERF.md); from device memory four rows' loads in flight (header)
+#pragma unroll (kADev ? 4 : 1)
       for (int i = g; i < ma; i += G) {
-        const float4 a = reinterpret_cast<const float4*>(sA + (size_t)i * n)[c4];
+        const float4 a = row4<kADev>(Ar + (size_t)i * n, c4);
         const float ti = st[i];
         acc.x += a.x * ti;
         acc.y += a.y * ti;
@@ -265,10 +325,11 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
       const int r = r0 + rgroup;
       float acc = 0.0f;
       if (r < nk) {
-        const float4* Mr = reinterpret_cast<const float4*>(sM + (size_t)r * n);
+        const float* Mr = Mrows + (size_t)r * n;
         const float4* rv = reinterpret_cast<const float4*>(rhs);
 #pragma unroll 2  // two float4 pairs in flight: the cluster-of-8 CTA has 64 registers
-        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow) acc = dot4(Mr[c4], rv[c4], acc);
+        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow)
+          acc = dot4(row4<kMDev>(Mr, c4), rv[c4], acc);
       }
 #pragma unroll
       for (int off = kLanesPerRow / 2; off >= 1; off >>= 1)
@@ -285,10 +346,11 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
       const int r = r0 + rgroup;
       float acc = 0.0f;
       if (r < ma) {
-        const float4* Ar = reinterpret_cast<const float4*>(sA + (size_t)r * n);
+        const float* Arow = Ar + (size_t)r * n;
         const float4* xv = reinterpret_cast<const float4*>(xf);
 #pragma unroll 2
-        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow) acc = dot4(Ar[c4], xv[c4], acc);
+        for (int c4 = sub; c4 < nc4; c4 += kLanesPerRow)
+          acc = dot4(row4<kADev>(Arow, c4), xv[c4], acc);
       }
 #pragma unroll
       for (int off = kLanesPerRow / 2; off >= 1; off >>= 1)
@@ -316,53 +378,79 @@ admm_dense_kernel(const float* __restrict__ A, const float* __restrict__ Minv,
   }
 }
 
-// Launches the kernel, or only asks where it fits (batch <= 0): *clusters is
-// how many clusters can be resident at once (the answer cached per shape), 0
-// if A's and Minv's rows do not fit one cluster.
+using DenseKernel = void (*)(const float*, const float*, const float*, const float*,
+                            const float*, const float*, const float*, const float*,
+                            const float*, float*, float*, float*, int, int, int, float, float,
+                            float);
+DenseKernel instance(int place) {
+  return place == kOnChip   ? admm_dense_kernel<kOnChip>
+         : place == kStreamA ? admm_dense_kernel<kStreamA>
+                             : admm_dense_kernel<kStreamBoth>;
+}
+
+// Launches the kernel, or only asks where it fits (batch <= 0): the first
+// instance (kOnChip, kStreamA, kStreamBoth) of which a cluster can be
+// resident. *place is that instance (-1 if none), *clusters how many of its
+// clusters can be resident at once (the answer cached per shape; 0 if none
+// fits) and *smem its dynamic shared bytes per CTA.
 cudaError_t launch(const float* A, const float* Minv, const float* q, const float* l,
                    const float* u, const float* rho, const float* x0, const float* z0,
                    const float* y0, float* xo, float* zo, float* yo, int batch, int m, int n,
                    int iters, float sigma, float alpha, float oma, cudaStream_t stream,
-                   int* clusters) {
+                   int* clusters, int* place, size_t* smem) {
   *clusters = 0;
+  *place = -1;
+  *smem = 0;
   if (n % 4 != 0 || m <= 0 || n <= 0) return cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(
-      batch, kCluster, kThreads, smem_floats(m, n) * sizeof(float), stream, &attr);
-  cudaError_t err = resident_clusters(admm_dense_kernel, cfg, clusters);
-  if (err != cudaSuccess || *clusters < 1 || batch <= 0) return err;
-  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, A, Minv, q, l, u, rho, x0, z0, y0, xo, zo,
-                           yo, m, n, iters, sigma, alpha, oma);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  for (int p = 0; p < kPlaces; ++p) {
+    cudaLaunchAttribute attr;
+    const size_t bytes = smem_floats(m, n, p) * sizeof(float);
+    const cudaLaunchConfig_t cfg =
+        cluster_config(batch, kCluster, kThreads, bytes, stream, &attr);
+    cudaError_t err = resident_clusters(instance(p), cfg, clusters);
+    if (err != cudaSuccess) return err;
+    if (*clusters < 1) continue;
+    *place = p;
+    *smem = bytes;
+    if (batch <= 0) return cudaSuccess;
+    err = cudaLaunchKernelEx(&cfg, instance(p), A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo,
+                             m, n, iters, sigma, alpha, oma);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // C entry point. A (batch, m, n); Minv (batch, n, n); q, x0, xo (batch, n);
-// l, u, rho, z0, y0, zo, yo (batch, m); all contiguous f32 on the device;
-// n % 4 == 0. Returns the cudaError_t of the launch (0 on success);
-// cudaErrorInvalidConfiguration if A's and Minv's rows do not fit a cluster.
+// l, u, rho, z0, y0, zo, yo (batch, m); all contiguous f32 on the device,
+// A and Minv 16-byte aligned; n % 4 == 0. Returns the cudaError_t of the
+// launch (0 on success); cudaErrorInvalidConfiguration if no instance fits.
 extern "C" int admm_dense_f32(const float* A, const float* Minv, const float* q, const float* l,
                               const float* u, const float* rho, const float* x0, const float* z0,
                               const float* y0, float* xo, float* zo, float* yo, int batch, int m,
                               int n, int iters, float sigma, float alpha, float oma,
                               cudaStream_t stream) {
-  int clusters = 0;
+  int clusters = 0, place = -1;
+  size_t smem = 0;
   const cudaError_t err = launch(A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo, batch, m, n,
-                                 iters, sigma, alpha, oma, stream, &clusters);
+                                 iters, sigma, alpha, oma, stream, &clusters, &place, &smem);
   return err == cudaSuccess && clusters < 1 ? (int)cudaErrorInvalidConfiguration : (int)err;
 }
 
-// The cluster admm_dense_f32 launches for A (m, n): its CTAs into *csize,
-// how many such clusters can be resident at once into *clusters (0: A does
-// not fit) and its dynamic shared memory per CTA into *smem_bytes (0 if it
-// does not fit). Returns a cudaError_t as above.
-extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters, int* smem_bytes) {
+// The launch admm_dense_f32 makes for A (m, n): its CTAs per cluster into
+// *csize, how many such clusters can be resident at once into *clusters (0:
+// no instance fits), its dynamic shared memory per CTA into *smem_bytes and
+// its instance (0 kOnChip, 1 kStreamA, 2 kStreamBoth; -1 none) into
+// *instance. Returns a cudaError_t as above.
+extern "C" int admm_dense_shape(int m, int n, int* csize, int* clusters, int* smem_bytes,
+                                int* instance) {
   *csize = kCluster;
+  size_t smem = 0;
   const cudaError_t err = launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                  nullptr, nullptr, nullptr, nullptr, nullptr, 0, m, n, 0, 0.f,
-                                 0.f, 0.f, nullptr, clusters);
-  *smem_bytes = *clusters >= 1 ? (int)(smem_floats(m, n) * sizeof(float)) : 0;
+                                 0.f, 0.f, nullptr, clusters, instance, &smem);
+  *smem_bytes = (int)smem;
   return (int)err;
 }

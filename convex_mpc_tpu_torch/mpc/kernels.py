@@ -13,17 +13,21 @@ Two kernels, each replacing a Pallas TPU kernel of
   separate eager op, so the kernel (compiled without multiply-add
   contraction) can agree with it bit for bit on the card;
 - :func:`admm_iterations` — the dense-A iterations of the legacy
-  fixed-segment ``admm.solve``, on the condensed QP (A (448, 192) at
-  horizon 16) and on the full form (A (640, 384)). The CUDA kernel is
+  fixed-segment ``admm.solve``, on the condensed QP (A (28 N, 12 N) at
+  horizon N: (448, 192) at 16) and on the full form (A (40 N, 24 N): (640,
+  384) at 16, up to (1280, 768) at 32). The CUDA kernel is
   ``csrc/admm_dense.cu`` (a cluster of 8 CTAs per scenario that split the
-  rows of A and Minv, both held in shared memory for the whole chunk, in
-  each column of A' t summed by the CTA that owns it); the plain version is
-  the arithmetic of the TPU ``_kernel``.
+  rows of A and Minv, each column of A' t summed by the CTA that owns it);
+  its instance (:data:`DENSE_INSTANCES`) says whether a CTA's rows of A and
+  Minv sit in shared memory for the whole chunk or are read in place from
+  device memory, the first whose shared bytes fit. An n that is not a
+  multiple of 4 is padded (:func:`_pad_dense`), as the TPU kernel pads to
+  128. The plain version is the arithmetic of the TPU ``_kernel``.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises. Each C launcher picks its cluster shape from
-its own shared-memory layout and raises where none fits the card: no smaller
-launch is made in its place. :func:`structured_cluster_shape` and
+launches the kernel or raises. Each C launcher picks its launch from its own
+shared-memory layout and raises where none fits the card: no other route is
+taken in its place. :func:`structured_cluster_shape` and
 :func:`dense_cluster_shape` read that choice back.
 """
 
@@ -179,20 +183,41 @@ def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
 
 _INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 
+# admm_dense.cu's instances, by the index its launcher reports: where a CTA's
+# rows of A and Minv are read from
+DENSE_INSTANCES = ("A and Minv on chip", "A from device memory, Minv on chip",
+                   "A and Minv from device memory")
 
-def dense_cluster_shape(m: int, n: int) -> tuple[int, int, int]:
-    """The dense kernel's launch for A (m, n), as its C launcher sizes it:
-    (CTAs per cluster (8), clusters resident at once, dynamic shared bytes
-    per CTA); 0 resident and 0 bytes where A's and Minv's rows do not fit
-    one cluster."""
-    return _cluster_shape("admm_dense", m, n, outputs=3)
+
+def dense_cluster_shape(m: int, n: int) -> tuple[int, int, int, int]:
+    """The dense kernel's launch for A (m, n), n a multiple of 4, as its C
+    launcher sizes it: (CTAs per cluster (8), clusters resident at once,
+    dynamic shared bytes per CTA, instance: an index into
+    :data:`DENSE_INSTANCES`); 0 resident, 0 bytes and instance -1 where no
+    instance fits one cluster."""
+    return _cluster_shape("admm_dense", m, n, outputs=4)
+
+
+def _pad_dense(A, Minv, q, l, u, rho, x0, z0, y0):
+    """The operands with n padded up to a multiple of 4 (the kernel's float4
+    rows): zero columns of A, a zero border of Minv, zero q and x0. The
+    padded entries of x stay 0 and change nothing else, so slicing x back to
+    n gives the unpadded iterations (the TPU kernel pads n to 128 the same
+    way)."""
+    n = A.shape[-1]
+    k = -n % 4
+    pad = torch.nn.functional.pad
+    return (pad(A, (0, k)), pad(Minv, (0, k, 0, k)), pad(q, (0, k)), l, u, rho, pad(x0, (0, k)),
+            z0, y0)
 
 
 def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
     cuda_build.require_cuda("admm_iterations", A, Minv, q, l, u, rho, x0, z0, y0)
     B, m, n = A.shape
-    if n % 4:
-        raise ValueError(f"admm_iterations kernel: n = {n} is not a multiple of 4")
+    if n % 4 or A.data_ptr() % 16 or Minv.data_ptr() % 16:
+        raise ValueError(f"admm_iterations kernel: n = {n} must be a multiple of 4 "
+                         f"(admm_iterations pads it) and A, Minv 16-byte aligned (the "
+                         f"kernel's float4 loads)")
     xo, zo, yo = torch.empty_like(x0), torch.empty_like(z0), torch.empty_like(y0)
     fn = cuda_build.load("admm_dense").admm_dense_f32
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
@@ -203,8 +228,8 @@ def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
     ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
     err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
     if err == _INVALID_CONFIGURATION:
-        raise RuntimeError(f"admm_iterations: A ({m}, {n}) and Minv ({n}, {n}) do not "
-                           f"fit one cluster of admm_dense.cu on this card (cudaError {err})")
+        raise RuntimeError(f"admm_iterations: no instance of admm_dense.cu fits one cluster "
+                           f"on this card at A ({m}, {n}), Minv ({n}, {n}) (cudaError {err})")
     cuda_build.check(err, "admm_iterations")
     return xo, zo, yo
 
@@ -226,9 +251,11 @@ def admm_iterations(A, Minv, q, l, u, rho, x0, z0, y0, iters: int, sigma: float 
         return admm_iterations_plain(*args, iters=iters, sigma=sigma, alpha=alpha)
     if A.device.type != "cuda":
         raise ValueError(f"admm_iterations runs on CPU or CUDA tensors, got {A.device}")
-    out = _launch_dense(*[t.contiguous() for t in args], iters, sigma, alpha)
+    if n % 4:
+        args = _pad_dense(*args)
+    x, z, y = _launch_dense(*[t.contiguous() for t in args], iters, sigma, alpha)
     admm_iterations.launches += 1
-    return out
+    return x[:, :n].contiguous(), z, y
 
 
 admm_iterations.launches = 0

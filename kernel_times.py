@@ -7,9 +7,11 @@ script), which builds its kernels under DIR, and times on one card, at
 B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
 and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
 25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and
-``admm_iterations`` at A (448, 192) and on the full form's A (640, 384)
-(``chip_smoke.full_form_problem``; another checkout whose package cannot
-build the full form prints why, with ``ms`` null); the fused tick window
+``admm_iterations`` on the legacy path's A at horizons 16, 24 and 32
+(``chip_smoke.DENSE_SHAPES``: condensed (448, 192), (672, 288), (896, 384);
+full form (640, 384), (960, 576), (1280, 768); another checkout whose
+package cannot build the full form, or whose kernel refuses a shape, prints
+why, with ``ms`` null); the fused tick window
 (``run_ticks_fused``'s launch) at B = 512 for 20 ticks on
 ``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
@@ -101,24 +103,27 @@ def spd_times(root, smoke, spd_inverse, dev, B) -> None:
 
 
 def dense_times(root, smoke, K, dev, B) -> None:
-    """``admm_iterations`` for 25 iterations on the condensed shape and on the
-    full form's. Only another checkout whose package lacks the full form
-    (``qp.build_qp``) is let off with ``ms`` null; any other error fails."""
-    problems = (("condensed", lambda: smoke.dense_problem(B, 64, seed=11, dev=dev)),
-                ("full form", lambda: smoke.full_form_problem(B, dev)))
-    for form, make in problems:
-        rec = {"root": str(root), "kernel": "admm_iterations", "form": form, "B": B,
-               "iters": 25}
+    """``admm_iterations`` for 25 iterations on each of ``chip_smoke.DENSE_SHAPES``
+    (the legacy path's condensed and full-form A at horizons 16, 24 and 32),
+    with the launch ``dense_cluster_shape`` reports. Only another checkout is
+    let off with ``ms`` null: where its package lacks the full form
+    (``qp.build_qp``) or its kernel refuses the shape; any other error
+    fails."""
+    for form, horizon, _ in smoke.DENSE_SHAPES:
+        rec = {"root": str(root), "kernel": "admm_iterations", "form": form,
+               "horizon": horizon, "B": B, "iters": 25}
         try:
-            args = make()
-        except AttributeError as exc:
+            args = smoke.dense_problem_at(form, horizon, B, dev)
+            rec["A"] = list(args[0].shape[1:])
+            rec["launch"] = list(K.dense_cluster_shape(*rec["A"]))
+            K.admm_iterations(*args, iters=25)
+        except (AttributeError, RuntimeError) as exc:
             if root.resolve() == HERE:
                 raise
             rec.update(ms=None, error=str(exc))
         else:
-            rec["A"] = list(args[0].shape[1:])
             rec["ms"] = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
-            del args
+        args = None
         print(json.dumps(rec))
         torch.cuda.empty_cache()
 

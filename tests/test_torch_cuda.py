@@ -24,13 +24,19 @@ duty = 1 gait; at ragged B, up to ``chip_smoke.MAX_FLIPS`` scenarios that
 took another contact branch within rounding are excused, as in
 ``chip_smoke.py``), and its launch one block of four lanes per scenario; the dense
 ADMM iterations within rtol and atol 2e-4 (``chip_smoke.dense_problem``,
-A (448, 192)) and, on the full form's ``chip_smoke.full_form_problem`` (A
-(640, 384)), within twice the plain version's error against the f64
-iterations (``chip_smoke.dense_f64_errors``), and at A (960, 576) a raise,
-not a launch; the tick window also on
+A (448, 192), and the condensed QP at horizons 24 and 32, A (672, 288) and
+(896, 384)) and, on the full form's ``chip_smoke.full_form_problem`` (A
+(640, 384), and at horizons 24 and 32 A (960, 576) and (1280, 768)), within
+twice the plain version's error against the f64 iterations
+(``chip_smoke.dense_f64_errors``), each shape on the instance
+``dense_cluster_shape`` reports (A and Minv on chip up to (672, 288) and
+(640, 384), A from device memory at (896, 384) and (960, 576), both at
+(1280, 768)), and an n that is not a multiple of 4 (A (21, 30)) padded and
+launched; the tick window also on
 ``chip_smoke.hetero_battery`` (each scenario's own gait and contact).
 The horizon-24 production cycle and the full-form legacy cycle at B = 8
-agree with the same cycles on the CPU within 2.0 N of applied force. A CUDA
+(horizons 16 and 24) agree with the same cycles on the CPU within 2.0 N of
+applied force. A CUDA
 state round-trips ``utils.checkpoint`` bitwise (and so does its next cycle),
 and ``utils.profiling.time_fn`` of a kernel-2 chunk is within 20% of its
 CUDA-event time.
@@ -47,8 +53,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    MAX_FLIPS, attractor_kkt, dense_f64_errors, dense_problem, full_form_problem,
-    hetero_battery, rounding_flips,
+    MAX_FLIPS, attractor_kkt, dense_f64_errors, dense_problem, dense_problem_at,
+    fixed_kwargs, full_form_problem, hetero_battery, random_dense_problem, rounding_flips,
     spd_batch, spd_kkt_errors, spd_nonspd, start_batch, structured_problem, tick_battery,
     window_misses)
 
@@ -231,8 +237,8 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
     _need_cuda()
     args = full_form_problem(8, torch.device("cuda"))
     assert tuple(args[0].shape) == (8, 640, 384)
-    csize, resident, smem = TK.dense_cluster_shape(640, 384)
-    assert csize == 8 and resident >= 1 and 116224 < smem <= 232448
+    csize, resident, smem, inst = TK.dense_cluster_shape(640, 384)
+    assert csize == 8 and resident >= 1 and 116224 < smem <= 232448 and inst == 0
     assert 0 < TK.dense_cluster_shape(448, 192)[2] <= 116224
     before = TK.admm_iterations.launches
     out = TK.admm_iterations(*args, iters=iters)
@@ -243,28 +249,59 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
     assert d["within_bar"], d
 
 
-def test_admm_dense_kernel_raises_where_nothing_fits():
-    """The full form at horizon 24, A (960, 576): no cluster holds it; the
-    wrapper raises with the shape and launches nothing."""
+@pytest.mark.parametrize("form, horizon, instance", [
+    ("condensed", 24, 0), ("condensed", 32, 1), ("full form", 24, 1), ("full form", 32, 2)])
+def test_admm_dense_kernel_longer_horizons(form, horizon, instance):
+    """The legacy path's A at horizons 24 and 32, B = 8, 25 iterations: the
+    instance the launcher reports (an index into ``DENSE_INSTANCES``), at
+    least one cluster resident, one launch, and the bar of its form."""
     _need_cuda()
-    m, n = 960, 576
-    assert TK.dense_cluster_shape(m, n)[1:] == (0, 0)
-    args = [torch.zeros(s, device="cuda") for s in
-            [(2, m, n), (2, n, n), (2, n), (2, m), (2, m), (2, m), (2, n), (2, m), (2, m)]]
+    args = dense_problem_at(form, horizon, 8, torch.device("cuda"))
+    m, n = args[0].shape[1:]
+    assert (m, n) == ((28 * horizon, 12 * horizon) if form == "condensed"
+                      else (40 * horizon, 24 * horizon))
+    csize, resident, smem, inst = TK.dense_cluster_shape(m, n)
+    assert (csize, inst) == (8, instance) and resident >= 1 and 0 < smem <= 232448
     before = TK.admm_iterations.launches
-    with pytest.raises(RuntimeError, match=r"A \(960, 576\)"):
-        TK.admm_iterations(*args, iters=1)
-    assert TK.admm_iterations.launches == before
+    out = TK.admm_iterations(*args, iters=25)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches == before + 1
+    ref = TK.admm_iterations_plain(*args, iters=25)
+    if form == "condensed":
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    else:
+        d = dense_f64_errors(out, ref, args, 25)
+        assert d["within_bar"], d
 
 
-def test_full_form_cycle_card_vs_cpu():
-    """One legacy cycle on the full form at B = 8 on the card and on the CPU."""
+@pytest.mark.parametrize("iters", [1, 7])
+def test_admm_dense_kernel_pads_n(iters):
+    """n = 30, not a multiple of 4: the wrapper pads n to 32, launches once
+    and returns x of width 30, within rtol and atol 2e-4 of the plain
+    version."""
     _need_cuda()
-    dyn, gait, contact, sched, state = start_batch(8, torch.device("cuda"))
-    full = TE.init_state(dyn, n=16, formulation="full").solver
+    args = random_dense_problem(8, 21, 30, seed=3, dev=torch.device("cuda"))
+    before = TK.admm_iterations.launches
+    out = TK.admm_iterations(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches == before + 1
+    ref = TK.admm_iterations_plain(*args, iters=iters)
+    assert tuple(out[0].shape) == (8, 30)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("horizon", [16, 24])
+def test_full_form_cycle_card_vs_cpu(horizon):
+    """One legacy cycle on the full form at B = 8 on the card and on the CPU
+    (A (640, 384) and (960, 576))."""
+    _need_cuda()
+    dyn, gait, contact, sched, state = start_batch(8, torch.device("cuda"), horizon)
+    full = TE.init_state(dyn, n=horizon, formulation="full").solver
     state = state._replace(solver=TE.broadcast_batch(full, 8))
     batch = (gait, contact, sched, state)
-    kw = dict(solver_iters=150, formulation="full")
+    kw = fixed_kwargs(horizon, "full")
     cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
     before = TK.admm_iterations.launches
     s_gpu, _ = TE.mpc_cycle_fixed(dyn, *batch, **kw)

@@ -7,7 +7,10 @@ plain version), ``mpc/condensed.py::build_condensed`` / ``recover_states``,
 
 - the iterations: rtol and atol 2e-4 against JAX ``kernels.admm_iterations``
   (its Pallas kernel run by the interpreter) and the NumPy loop of
-  tests/test_kernels.py, at 1 and 7 iterations (tests/test_kernels.py);
+  tests/test_kernels.py, at 1 and 7 iterations (tests/test_kernels.py); on
+  the operands padded to n % 4 == 0 for the kernel (``_pad_dense``), x
+  sliced back, equal to the unpadded iterations (the padding adds exact
+  zeros);
 - QP assembly and Ruiz scaling: 1e-5 of scale, bounds exactly;
 - ``solve`` on the condensed QP of tests/test_kernels.py::test_kernel_on_real_qp,
   with dense and diagonal P, with and without the identity box tail, with
@@ -64,6 +67,26 @@ def test_admm_iterations_plain_matches_jax(iters):
     for name, a, r1, r2 in zip("xzy", out, ref_np, ref_jax):
         np.testing.assert_allclose(a.numpy(), r1, rtol=2e-4, atol=2e-4, err_msg=name)
         np.testing.assert_allclose(a.numpy(), np.asarray(r2), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+def test_pad_dense_matches_unpadded_and_jax(iters):
+    """n = 30, not a multiple of 4: the operands the kernel's wrapper pads
+    (``_pad_dense``: n to 32) run the same iterations: the plain version on
+    them, x sliced back to 30, equals the plain version on the originals,
+    and both match JAX ``kernels.admm_iterations`` (its Pallas kernel run by
+    the interpreter, which pads to 128) within rtol and atol 2e-4."""
+    args = make_problem(b=3, m=21, n=30, seed=4)
+    ref_jax = JK.admm_iterations(*[jnp.asarray(a) for a in args], iters=iters, block_k=2)
+    targs = [t(a) for a in args]
+    padded = TK._pad_dense(*targs)
+    assert tuple(padded[0].shape) == (3, 21, 32) and tuple(padded[1].shape) == (3, 32, 32)
+    xp, zp, yp = TK.admm_iterations_plain(*padded, iters=iters)
+    assert torch.equal(xp[:, 30:], torch.zeros(3, 2))
+    out = TK.admm_iterations_plain(*targs, iters=iters)
+    for name, a, b, r in zip("xzy", (xp[:, :30], zp, yp), out, ref_jax):
+        assert torch.equal(a, b), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=2e-4, atol=2e-4, err_msg=name)
 
 
 def test_admm_iterations_inert_rows_and_cpu_launch():
