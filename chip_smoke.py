@@ -37,9 +37,12 @@ Phases (any failure exits non-zero and prints no result line):
    within twice the plain version's error: ``dense_f64_errors``); beside
    each, how many entries the plain version with its sums reordered,
    ``permuted_plain``, has outside rtol and atol 2e-4; for 25 and 50
-   iterations in clusters of 8 CTAs, each shape's instance (A and Minv on
-   chip, A from device memory, or both), shared bytes and resident
-   clusters printed; the launch at A (280, 120) (horizon 10) reported, and
+   iterations, and for 10 (the legacy solver's longest launch) at the shapes
+   whose A streams through the TMA ring ((896, 384), (960, 576), (1280,
+   768)), each shape's instance (A and Minv on chip, A through the ring, or
+   both from device memory), CTAs per cluster (8, or 16 at (1280, 768)),
+   shared bytes and resident clusters printed; the launch at A (280, 120)
+   (horizon 10) reported, and
    an n that is not a multiple of 4 (A (21, 30), B = 8, padded) within
    2e-4 of the plain version. Before them, each kernel's
    ``ptxas -v`` lines; every kernel must show no stack frame and no
@@ -802,8 +805,9 @@ def dense_problem_at(form: str, horizon: int, B: int, dev):
 def check_admm_dense(dev) -> list:
     """The dense iterations at B_MAIN on each of ``DENSE_SHAPES``: the
     condensed shapes within rtol and atol 2e-4 of the plain version, the
-    full form's within ``dense_f64_errors``' bar, after 25 and 50 iterations,
-    and their times; the launch at A (280, 120) (condensed, horizon 10)
+    full form's within ``dense_f64_errors``' bar, after 25 and 50 iterations
+    (and 10 where A streams through the ring), and their times; the launch
+    at A (280, 120) (condensed, horizon 10)
     reported; an n that is not a multiple of 4 (A (21, 30), B = 8) padded and
     launched, within 2e-4 of the plain version. Returns a kernel-table row
     for each of ``DENSE_SHAPES``."""
@@ -891,7 +895,8 @@ def dense_shape_row(dev, form: str, args, run: str) -> dict:
           f"({K.DENSE_INSTANCES[inst]}), clusters of {csize} CTAs, {smem} B of shared memory "
           f"per CTA, {resident} resident at once, {B / resident:.2f} waves at B={B}")
     worst = 0.0
-    for iters in (25, 50):
+    ring = "ring" in K.DENSE_INSTANCES[inst]
+    for iters in ((10, 25, 50) if ring else (25, 50)):
         out = K.admm_iterations(*args, iters=iters)
         torch.cuda.synchronize()
         ref = K.admm_iterations_plain(*args, iters=iters)
@@ -916,6 +921,9 @@ def dense_shape_row(dev, form: str, args, run: str) -> dict:
             fail(f"admm_iterations disagrees with its plain version at {iters} iterations "
                  f"(A {(m, n)})")
         worst = max(worst, *errs)
+    if ring:
+        print(f"admm_iterations (dense, {form}) A={(m, n)} kernel at 10 iterations: "
+              f"{cuda_ms(lambda: K.admm_iterations(*args, iters=10)):.4f} ms")
     iters = 25
     ms = cuda_ms(lambda: K.admm_iterations(*args, iters=iters))
     plain_ms = cuda_ms(lambda: K.admm_iterations_plain(*args, iters=iters), reps=3)

@@ -82,9 +82,11 @@ inline cudaLaunchConfig_t cluster_config(int clusters, int csize, int threads, s
 // the current device (cudaOccupancyMaxActiveClusters), into *clusters; 0 if
 // the shape does not fit: more threads than the kernel's launch bounds allow,
 // or more shared memory than one block may have. Raises the kernel's
-// dynamic shared-memory limit to cfg's on the way (never lowers it). The
-// answer is kept per (kernel, device, shape), so a repeated launch makes
-// none of these host calls again.
+// dynamic shared-memory limit to cfg's on the way (never lowers it), and
+// for a cluster of more than 8 CTAs (the portable limit) allows it
+// non-portable cluster sizes first. Both attributes are set once per
+// (kernel, device), and the answer is kept per (kernel, device, shape), so a
+// repeated launch makes none of these host calls again.
 template <typename... Args>
 cudaError_t resident_clusters(void (*kernel)(Args...), const cudaLaunchConfig_t& cfg,
                               int* clusters) {
@@ -95,10 +97,11 @@ cudaError_t resident_clusters(void (*kernel)(Args...), const cudaLaunchConfig_t&
     size_t smem;
     int clusters;
   };
-  struct Limit {  // the dynamic shared-memory limit set so far
+  struct Limit {  // the dynamic shared-memory limit set so far; non-portable sizes allowed
     const void* fn;
     int dev;
     size_t smem;
+    bool nonportable;
   };
   static std::mutex mu;
   static std::vector<Entry> known;
@@ -125,13 +128,19 @@ cudaError_t resident_clusters(void (*kernel)(Args...), const cudaLaunchConfig_t&
     Limit* lim = nullptr;
     for (Limit& x : limits)
       if (x.fn == fn && x.dev == dev) lim = &x;
-    if (lim == nullptr || lim->smem < smem) {
+    if (lim == nullptr) {
+      limits.push_back({fn, dev, 0, false});
+      lim = &limits.back();
+    }
+    if (lim->smem < smem) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
-      if (lim == nullptr)
-        limits.push_back({fn, dev, smem});
-      else
-        lim->smem = smem;
+      lim->smem = smem;
+    }
+    if (csize > 8 && !lim->nonportable) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      lim->nonportable = true;
     }
     if ((err = cudaOccupancyMaxActiveClusters(&found, kernel, &cfg)) != cudaSuccess) return err;
   }

@@ -16,11 +16,13 @@ Two kernels, each replacing a Pallas TPU kernel of
   fixed-segment ``admm.solve``, on the condensed QP (A (28 N, 12 N) at
   horizon N: (448, 192) at 16) and on the full form (A (40 N, 24 N): (640,
   384) at 16, up to (1280, 768) at 32). The CUDA kernel is
-  ``csrc/admm_dense.cu`` (a cluster of 8 CTAs per scenario that split the
-  rows of A and Minv, each column of A' t summed by the CTA that owns it);
-  its instance (:data:`DENSE_INSTANCES`) says whether a CTA's rows of A and
-  Minv sit in shared memory for the whole chunk or are read in place from
-  device memory, the first whose shared bytes fit. An n that is not a
+  ``csrc/admm_dense.cu`` (a cluster of 8 CTAs per scenario, 16 at A (1280,
+  768), that split the rows of A and Minv, each column of A' t summed by the
+  CTA that owns it); its instance (:data:`DENSE_INSTANCES`) says whether a
+  CTA's rows of A sit in shared memory for the whole chunk, pass once an
+  iteration through one-row TMA slots, one per warp, or are read in place
+  from device memory with Minv's, the first whose shared bytes fit. An n
+  that is not a
   multiple of 4 is padded (:func:`_pad_dense`), as the TPU kernel pads to
   128. The plain version is the arithmetic of the TPU ``_kernel``.
 
@@ -185,16 +187,16 @@ _INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
 
 # admm_dense.cu's instances, by the index its launcher reports: where a CTA's
 # rows of A and Minv are read from
-DENSE_INSTANCES = ("A and Minv on chip", "A from device memory, Minv on chip",
+DENSE_INSTANCES = ("A and Minv on chip", "A through a TMA ring once an iteration, Minv on chip",
                    "A and Minv from device memory")
 
 
 def dense_cluster_shape(m: int, n: int) -> tuple[int, int, int, int]:
     """The dense kernel's launch for A (m, n), n a multiple of 4, as its C
-    launcher sizes it: (CTAs per cluster (8), clusters resident at once,
-    dynamic shared bytes per CTA, instance: an index into
-    :data:`DENSE_INSTANCES`); 0 resident, 0 bytes and instance -1 where no
-    instance fits one cluster."""
+    launcher sizes it: (CTAs per cluster (8 or 16), clusters resident at
+    once, dynamic shared bytes per CTA, instance: an index into
+    :data:`DENSE_INSTANCES`); 0 CTAs, 0 resident, 0 bytes and instance -1
+    where no instance fits one cluster."""
     return _cluster_shape("admm_dense", m, n, outputs=4)
 
 

@@ -6,12 +6,14 @@ Imports ``convex_mpc_tpu_torch`` from DIR (default: the directory of this
 script), which builds its kernels under DIR, and times on one card, at
 B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
 and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
-25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and
-``admm_iterations`` on the legacy path's A at horizons 16, 24 and 32
-(``chip_smoke.DENSE_SHAPES``: condensed (448, 192), (672, 288), (896, 384);
-full form (640, 384), (960, 576), (1280, 768); another checkout whose
-package cannot build the full form, or whose kernel refuses a shape, prints
-why, with ``ms`` null); the fused tick window
+25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and at
+25 and 10 iterations ``admm_iterations`` on the legacy path's A at horizons
+16, 24 and 32 (``chip_smoke.DENSE_SHAPES``: condensed (448, 192), (672,
+288), (896, 384); full form (640, 384), (960, 576), (1280, 768)), with the
+bytes its instance moves from HBM and from L2 by its design's arithmetic
+and the bound (another checkout whose package cannot build the full form,
+or whose kernel refuses a shape, prints why, with ``ms`` null); the fused
+tick window
 (``run_ticks_fused``'s launch) at B = 512 for 20 ticks on
 ``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
@@ -102,29 +104,71 @@ def spd_times(root, smoke, spd_inverse, dev, B) -> None:
                       "resid": k["r_kernel"]}))
 
 
+L2_BYTES = 50e6  # the H100's L2
+
+
+def dense_bytes(inst_name: str, resident: int, B: int, m: int, n: int, iters: int) -> dict:
+    """The bytes kernel 4's instance ``inst_name`` (its checkout's
+    ``DENSE_INSTANCES`` entry) moves a chunk by its design's own arithmetic:
+    each launch reads A and Minv from HBM once; then the rows it reads again
+    come from L2 where the resident clusters' share of them fits its 50 MB,
+    else from HBM. Streamed, an iteration reads A twice (steps 1 and 5) and
+    Minv once (A and Minv from device memory), A twice (A from device
+    memory), A once a pass, iters + 1 passes (the ring), or nothing (on
+    chip)."""
+    a, mv = 4.0 * m * n, 4.0 * n * n
+    once = B * (a + mv)
+    if "ring" in inst_name:
+        again = B * a * iters  # the prologue's pass is the launch's first read
+        per_scenario = a
+    elif "A and Minv from device memory" in inst_name:
+        again = B * (2 * a * iters + mv * iters) - once
+        per_scenario = a + mv
+    elif "from device memory" in inst_name:
+        again = B * 2 * a * iters - B * a
+        per_scenario = a
+    else:
+        again, per_scenario = 0.0, 0.0
+    in_l2 = resident * per_scenario <= L2_BYTES
+    return {"hbm_bytes": once + (0.0 if in_l2 else again), "l2_bytes": again if in_l2 else 0.0}
+
+
 def dense_times(root, smoke, K, dev, B) -> None:
-    """``admm_iterations`` for 25 iterations on each of ``chip_smoke.DENSE_SHAPES``
-    (the legacy path's condensed and full-form A at horizons 16, 24 and 32),
-    with the launch ``dense_cluster_shape`` reports. Only another checkout is
-    let off with ``ms`` null: where its package lacks the full form
-    (``qp.build_qp``) or its kernel refuses the shape; any other error
+    """``admm_iterations`` for 25 and for 10 iterations (the legacy solver's
+    launches are at most 10) on each of ``chip_smoke.DENSE_SHAPES`` (the
+    legacy path's condensed and full-form A at horizons 16, 24 and 32), with
+    the launch ``dense_cluster_shape`` reports, the bytes its instance moves
+    (``dense_bytes``) and the bound (``chip_smoke.bound``). Only another
+    checkout is let off with ``ms`` null: where its package lacks the full
+    form (``qp.build_qp``) or its kernel refuses the shape; any other error
     fails."""
     for form, horizon, _ in smoke.DENSE_SHAPES:
-        rec = {"root": str(root), "kernel": "admm_iterations", "form": form,
-               "horizon": horizon, "B": B, "iters": 25}
         try:
             args = smoke.dense_problem_at(form, horizon, B, dev)
-            rec["A"] = list(args[0].shape[1:])
-            rec["launch"] = list(K.dense_cluster_shape(*rec["A"]))
-            K.admm_iterations(*args, iters=25)
+            A = list(args[0].shape[1:])
+            launch = list(K.dense_cluster_shape(*A))
+            K.admm_iterations(*args, iters=1)
         except (AttributeError, RuntimeError) as exc:
             if root.resolve() == HERE:
                 raise
-            rec.update(ms=None, error=str(exc))
-        else:
-            rec["ms"] = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=25))
+            print(json.dumps({"root": str(root), "kernel": "admm_iterations", "form": form,
+                              "horizon": horizon, "B": B, "ms": None, "error": str(exc)}))
+            args = None
+            torch.cuda.empty_cache()
+            continue
+        m, n = A
+        inst = K.DENSE_INSTANCES[launch[3]] if launch[3] >= 0 else None
+        for iters in (25, 10):
+            rec = {"root": str(root), "kernel": "admm_iterations", "form": form,
+                   "horizon": horizon, "B": B, "iters": iters, "A": A, "launch": launch,
+                   "instance": inst}
+            rec["ms"] = smoke.cuda_ms(lambda: K.admm_iterations(*args, iters=iters))
+            rec.update(dense_bytes(inst or "", launch[1], B, m, n, iters))
+            flops = B * iters * (4 * m * n + 2 * n * n + 12 * m + 6 * n)
+            rec["bound_ms"], rec["bound_by"] = smoke.bound(
+                4 * B * (m * n + n * n + 2 * n + 6 * m) + 4 * B * (n + 2 * m), flops)
+            print(json.dumps(rec))
         args = None
-        print(json.dumps(rec))
         torch.cuda.empty_cache()
 
 

@@ -28,11 +28,13 @@ A (448, 192), and the condensed QP at horizons 24 and 32, A (672, 288) and
 (896, 384)) and, on the full form's ``chip_smoke.full_form_problem`` (A
 (640, 384), and at horizons 24 and 32 A (960, 576) and (1280, 768)), within
 twice the plain version's error against the f64 iterations
-(``chip_smoke.dense_f64_errors``), each shape on the instance
-``dense_cluster_shape`` reports (A and Minv on chip up to (672, 288) and
-(640, 384), A from device memory at (896, 384) and (960, 576), both at
-(1280, 768)), and an n that is not a multiple of 4 (A (21, 30)) padded and
-launched; the tick window also on
+(``chip_smoke.dense_f64_errors``), each shape on the instance and cluster
+``dense_cluster_shape`` reports (A and Minv on chip in clusters of 8 up to
+(672, 288) and (640, 384); A through the TMA ring in clusters of 8 at (896,
+384) and (960, 576), of 16 at (1280, 768)), the ring's shapes also after 1,
+2, 7 and 10 iterations at B = 1 and B = 133, A (1904, 816) on the
+instance that reads A and Minv from device memory, and an n that is not a
+multiple of 4 (A (21, 30)) padded and launched; the tick window also on
 ``chip_smoke.hetero_battery`` (each scenario's own gait and contact).
 The horizon-24 production cycle and the full-form legacy cycle at B = 8
 (horizons 16 and 24) agree with the same cycles on the CPU within 2.0 N of
@@ -249,30 +251,58 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
     assert d["within_bar"], d
 
 
-@pytest.mark.parametrize("form, horizon, instance", [
-    ("condensed", 24, 0), ("condensed", 32, 1), ("full form", 24, 1), ("full form", 32, 2)])
-def test_admm_dense_kernel_longer_horizons(form, horizon, instance):
+def _check_dense(form, args, iters):
+    """One launch of the dense iterations, within the bar of its form."""
+    before = TK.admm_iterations.launches
+    out = TK.admm_iterations(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert TK.admm_iterations.launches == before + 1
+    ref = TK.admm_iterations_plain(*args, iters=iters)
+    if form == "condensed":
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+    else:
+        d = dense_f64_errors(out, ref, args, iters)
+        assert d["within_bar"], d
+
+
+@pytest.mark.parametrize("form, horizon, instance, ctas", [
+    ("condensed", 24, 0, 8), ("condensed", 32, 1, 8), ("full form", 24, 1, 8),
+    ("full form", 32, 1, 16)])
+def test_admm_dense_kernel_longer_horizons(form, horizon, instance, ctas):
     """The legacy path's A at horizons 24 and 32, B = 8, 25 iterations: the
-    instance the launcher reports (an index into ``DENSE_INSTANCES``), at
-    least one cluster resident, one launch, and the bar of its form."""
+    instance the launcher reports (an index into ``DENSE_INSTANCES``) and
+    its CTAs per cluster, at least one cluster resident, one launch, and the
+    bar of its form."""
     _need_cuda()
     args = dense_problem_at(form, horizon, 8, torch.device("cuda"))
     m, n = args[0].shape[1:]
     assert (m, n) == ((28 * horizon, 12 * horizon) if form == "condensed"
                       else (40 * horizon, 24 * horizon))
     csize, resident, smem, inst = TK.dense_cluster_shape(m, n)
-    assert (csize, inst) == (8, instance) and resident >= 1 and 0 < smem <= 232448
-    before = TK.admm_iterations.launches
-    out = TK.admm_iterations(*args, iters=25)
-    torch.cuda.synchronize()
-    assert TK.admm_iterations.launches == before + 1
-    ref = TK.admm_iterations_plain(*args, iters=25)
-    if form == "condensed":
-        for a, b in zip(out, ref):
-            torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
-    else:
-        d = dense_f64_errors(out, ref, args, 25)
-        assert d["within_bar"], d
+    assert (csize, inst) == (ctas, instance) and resident >= 1 and 0 < smem <= 232448
+    _check_dense(form, args, 25)
+
+
+_RING_PROBLEMS: dict = {}
+
+
+@pytest.mark.parametrize("B", [1, 133])
+@pytest.mark.parametrize("iters", [1, 2, 7, 10])
+@pytest.mark.parametrize("form, horizon", [("condensed", 32), ("full form", 24),
+                                           ("full form", 32)])
+def test_admm_dense_ring_short_launches(form, horizon, iters, B):
+    """The ring instance's shapes at the legacy solver's launch lengths (at
+    most 10 iterations; 1, 2 and 7 where a prologue or an odd count would
+    break the pass order), at B = 1 and at B = 133 (not a multiple of the
+    resident clusters): one launch each, within the bar of its form."""
+    _need_cuda()
+    key = (form, horizon, B)
+    if key not in _RING_PROBLEMS:  # six problems, built once each (~1.4 GB at most)
+        _RING_PROBLEMS[key] = dense_problem_at(form, horizon, B, torch.device("cuda"))
+    args = _RING_PROBLEMS[key]
+    assert TK.dense_cluster_shape(*args[0].shape[1:])[3] == 1
+    _check_dense(form, args, iters)
 
 
 @pytest.mark.parametrize("iters", [1, 7])
@@ -290,6 +320,19 @@ def test_admm_dense_kernel_pads_n(iters):
     assert tuple(out[0].shape) == (8, 30)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("iters", [1, 7])
+def test_admm_dense_kernel_streams_both(iters):
+    """The structured problem written out dense at nb = 272, A (1904, 816):
+    wider than the ring's n <= 768, so the instance that reads A and Minv
+    from device memory; one launch, within rtol and atol 2e-4 of the plain
+    version."""
+    _need_cuda()
+    args = dense_problem(8, 272, seed=11, dev=torch.device("cuda"))
+    csize, resident, smem, inst = TK.dense_cluster_shape(1904, 816)
+    assert (csize, inst) == (8, 2) and resident >= 1
+    _check_dense("condensed", args, iters)
 
 
 @pytest.mark.parametrize("horizon", [16, 24])
