@@ -10,13 +10,15 @@ Phases (any failure exits non-zero and prints no result line):
 3. each kernel against its plain PyTorch version on the card at its path's
    shapes, with CUDA-event times of the kernel, the plain version and a
    yardstick the port never calls: ``spd_inverse`` at B = 512 on random SPD
-   batches at n = 192, 288 and 384 (horizons 16, 24, 32; where its working
-   set lives and its CTAs per SM, at least 2 at n = 192; one matrix of each
+   batches at n = 192, 288 and 384 (horizons 16, 24, 32; its instance
+   printed: one CTA on chip, at least 2 CTAs per SM at n = 192, or at n =
+   384 a cluster of 2 CTAs with the clusters resident; one matrix of each
    made non-SPD at its first pivot and one at its last panel must come back
-   all NaN) and on the solver's KKT matrix at
-   attractor-region rho (1e-4), and at the rho the solver and its warm
+   all NaN) and on the solver's KKT matrices at horizons 16 and 32 at
+   attractor-region rho (1e-4) and at the rho the solver and its warm
    carry reach below it (1e-5 and 1e-6: error and residual against the f64
-   inverse at most twice the plain version's, as at 1e-4); the structured
+   inverse at most twice the plain version's), a row of the kernel table
+   per n (``SPD_SIZES``); the structured
    ADMM chunk at B = 512, nb = 40, 64, 96 and 128 (horizons 10-32; nb = 40
    runs the kernel's generic instance), bitwise equal to its plain version
    after 25 and 150 iterations, each size's cluster shape printed; the
@@ -318,17 +320,26 @@ def spd_nonspd(A: torch.Tensor, first: int, last: int) -> None:
 def check_spd_random(n: int, dev) -> float:
     """spd_inverse against its plain version on a random SPD batch of size n
     at B_MAIN, two matrices of it made non-SPD (``spd_nonspd``: their outputs
-    must be all NaN, the others finite). Prints where the kernel keeps its
-    working set and its CTAs per SM (at least 2 at n = 192). Returns
+    must be all NaN, the others finite). Prints the instance the kernel runs
+    at n (where its working set lives, CTAs per cluster, shared bytes, CTAs
+    per SM or clusters resident; at least 2 CTAs per SM at n = 192). Returns
     max|kernel - plain| over the SPD matrices."""
     from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain, spd_inverse_shape
 
-    smem, scratch, ctas = spd_inverse_shape(n)
-    where = (f"on chip, {smem} B of shared memory" if smem else
-             f"in device memory, {scratch} floats of scratch per matrix")
-    print(f"spd_inverse n={n}: working set {where}; {ctas} CTAs resident per SM")
-    if n == 192 and ctas < 2:
-        fail(f"spd_inverse at n=192 keeps {ctas} CTA per SM, not at least 2")
+    smem, scratch, resident, csize = spd_inverse_shape(n)
+    if csize == 2:
+        where = (f"split over a cluster of 2 CTAs, {smem} B of shared memory a CTA; "
+                 f"{resident} clusters resident at once")
+    elif smem:
+        where = f"on chip in one CTA, {smem} B of shared memory; {resident} CTAs resident per SM"
+    else:
+        where = (f"in device memory, {scratch} floats of scratch per matrix, one CTA; "
+                 f"{resident} CTAs resident per SM")
+    print(f"spd_inverse n={n}: working set {where}")
+    if n == 192 and (csize != 1 or resident < 2):
+        fail(f"spd_inverse at n=192 keeps {resident} CTA per SM, not at least 2")
+    if resident < 1:
+        fail(f"spd_inverse at n={n}: the launch does not fit the card")
     B, bad = B_MAIN, (5, B_MAIN - 3)
     A = spd_batch(B, n, 7, dev)
     spd_nonspd(A, *bad)
@@ -380,50 +391,55 @@ def spd_kkt_errors(kkt: torch.Tensor) -> dict:
     return k
 
 
-def check_spd_inverse(kkt: torch.Tensor) -> dict:
-    dev = kkt.device
-    n = 192
-    # horizons 24 and 32 (n = 288 on chip, 384 in device memory)
-    err = max(check_spd_random(nn, dev) for nn in (192, 288, 384))
-    for nn in (288, 384):
-        spd_times(spd_batch(B_MAIN, nn, 7, dev))
+# kernel 1's sizes on the production path: (n, horizon, the window whose
+# launches its row of the kernel table counts)
+SPD_SIZES = ((192, 16, "main"), (288, 24, "horizon24"), (384, 32, "horizon32"))
 
-    # the solver's KKT at attractor-region rho: cond ~1e4, so the bar is
-    # relative to the f64 inverse (within twice the plain version's error)
-    k = spd_kkt_errors(kkt)
-    print(f"spd_inverse KKT rho=1e-4 B={B_MAIN}: max|k-plain|={k['kerr']:.3e} "
-          f"(= {k['kerr'] / k['kscale']:.2e} x scale) "
-          f"|k-f64|={k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
-          f"{k['e_plain'] / k['kscale']:.2e}; "
-          f"|A out - I| kernel {k['r_kernel']:.3e} plain {k['r_plain']:.3e}; bitwise={k['bitwise']}")
-    # the random-SPD bar, reported but not required here: on this cond ~1e4
-    # matrix the plain version is itself farther than that from the f64 inverse
-    met = k["kerr"] <= 5e-5 * k["pscale"] and k["r_kernel"] < 1e-4
-    print(f"spd_inverse KKT against the random-SPD bar (|k-plain| <= 5e-5 x scale = "
-          f"{5e-5 * k['pscale']:.3e}, |A out - I| < 1e-4): {'met' if met else 'NOT met'}")
-    if not k["within_bar"]:
-        fail("spd_inverse on the attractor-rho KKT is less accurate than twice the plain version")
 
-    # below the attractor region: the solver lets rho fall to 1e-6, its warm
-    # carry keeps it down to 1e-5; the same bar
-    for rho in (1e-5, 1e-6):
-        k = spd_kkt_errors(attractor_kkt(dev, rho))
-        print(f"spd_inverse KKT rho={rho:g} B={B_MAIN}: |k-f64| = "
-              f"{k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
-              f"{k['e_plain'] / k['kscale']:.2e} (bar twice the plain + 1e-5 x scale); "
-              f"|A out - I| kernel {k['r_kernel']:.3e} plain {k['r_plain']:.3e} (bar twice the "
-              f"plain + 1e-5); max|k-plain| {k['kerr']:.3e}; within bar: {k['within_bar']}")
-        if not k["within_bar"]:
-            fail(f"spd_inverse on the KKT at rho={rho:g} is less accurate than twice the plain "
-                 f"version")
+def check_spd_inverse(dev) -> list:
+    """Kernel 1 at each of ``SPD_SIZES``: the random batch
+    (``check_spd_random``), the times (``spd_times``) and, at horizons 16
+    and 32 (n = 192 one CTA, 384 a cluster of 2), the solver's KKT at
+    attractor-region rho 1e-4 and at the rho the solver and its warm carry
+    reach below it (1e-5, 1e-6): the kernel finite, its error and residual
+    against the f64 inverse at most twice the plain version's. One row of
+    the kernel table per n."""
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse_shape
 
-    # the main path's size (horizon 16) for the kernel table
-    ms, plain_ms, lib_ms, b_ms, b_by = spd_times(spd_batch(B_MAIN, n, 7, dev))
-    return dict(name="spd_inverse", route="cuda",
-                source="convex_mpc_tpu_torch/csrc/spd_inverse.cu",
-                replaces="convex_mpc_tpu/ops/chol_kernel.py:227",
-                max_abs_err=max(err, k["kerr"]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+    rows = []
+    for n, horizon, run in SPD_SIZES:
+        err = check_spd_random(n, dev)
+        for rho in ((1e-4, 1e-5, 1e-6) if horizon in (16, 32) else ()):
+            k = spd_kkt_errors(attractor_kkt(dev, rho, horizon))
+            print(f"spd_inverse KKT horizon {horizon} (n={n}) rho={rho:g} B={B_MAIN}: "
+                  f"|k-f64| = {k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
+                  f"{k['e_plain'] / k['kscale']:.2e} (bar twice the plain + 1e-5 x scale); "
+                  f"|A out - I| kernel {k['r_kernel']:.3e} plain {k['r_plain']:.3e} (bar twice the "
+                  f"plain + 1e-5); max|k-plain| {k['kerr']:.3e} "
+                  f"(= {k['kerr'] / k['kscale']:.2e} x scale); bitwise={k['bitwise']}; "
+                  f"within bar: {k['within_bar']}")
+            if rho == 1e-4:
+                # the random-SPD bar, reported but not required: on this cond
+                # ~1e4 matrix the plain version is itself farther than that
+                # from the f64 inverse
+                met = k["kerr"] <= 5e-5 * k["pscale"] and k["r_kernel"] < 1e-4
+                print(f"spd_inverse KKT horizon {horizon} against the random-SPD bar "
+                      f"(|k-plain| <= 5e-5 x scale = {5e-5 * k['pscale']:.3e}, |A out - I| < 1e-4): "
+                      f"{'met' if met else 'NOT met'}")
+                err = max(err, k["kerr"])
+            if not k["within_bar"]:
+                fail(f"spd_inverse on the horizon-{horizon} KKT at rho={rho:g} is less accurate "
+                     f"than twice the plain version")
+        torch.cuda.empty_cache()
+        ms, plain_ms, lib_ms, b_ms, b_by = spd_times(spd_batch(B_MAIN, n, 7, dev))
+        csize = spd_inverse_shape(n)[3]
+        rows.append(dict(name="spd_inverse" if run == "main" else f"spd_inverse (n {n})",
+                         route="cuda", source="convex_mpc_tpu_torch/csrc/spd_inverse.cu",
+                         replaces="convex_mpc_tpu/ops/chol_kernel.py:227",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, shape=[n], run=run,
+                         instance="cluster of 2" if csize == 2 else "one CTA"))
+    return rows
 
 
 def check_admm_chunk(dev) -> list:
@@ -967,15 +983,16 @@ def start_batch(B: int, dev, n: int = HORIZON, x_spread: float = 0.02):
     return dyn, gait_b, contact_b, sched_b, state_b
 
 
-def attractor_kkt(dev, rho: float = 1e-4) -> torch.Tensor:
+def attractor_kkt(dev, rho: float = 1e-4, horizon: int = HORIZON) -> torch.Tensor:
     """The solver's KKT matrices at ``rho`` (default 1e-4, the attractor
-    region) for the main path's first QP batch."""
+    region) for the first QP batch of the production cycle at ``horizon``
+    (n = 12 x horizon; mpc_dt = gait period / horizon, as ``horizons_path``)."""
     from convex_mpc_tpu_torch.mpc import admm
     from convex_mpc_tpu_torch.sim import engine as E
-    from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
+    from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
 
-    kw = engine_kwargs_batched(DEFAULT_CONFIG)
-    dyn, gait_b, _, sched_b, state_b = start_batch(B_MAIN, dev)
+    kw = engine_kwargs_batched(EngineConfig(mpc=MpcConfig(horizon=horizon)))
+    dyn, gait_b, _, sched_b, state_b = start_batch(B_MAIN, dev, horizon)
     qd = torch.as_tensor(kw["q_diag"], dtype=torch.float32, device=dev)
     data = E.cycle_update(dyn, gait_b, sched_b, state_b, qd, kw["n"], kw["mpc_dt"],
                           kw["r_value"], kw["mu_mpc"], kw["fz_min"])[0]
@@ -1673,10 +1690,8 @@ def main() -> None:
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     ptxas_report(logs)
 
-    kkt = attractor_kkt(dev)
-    kernels = [check_spd_inverse(kkt), *check_admm_chunk(dev), check_tick_window(dev),
+    kernels = [*check_spd_inverse(dev), *check_admm_chunk(dev), check_tick_window(dev),
                *check_admm_dense(dev)]
-    del kkt
     torch.cuda.empty_cache()
 
     paths = main_path(dev)
@@ -1689,11 +1704,12 @@ def main() -> None:
     measurement_path(dev, paths["settled"])
     parity_path()
     tools_path()
-    # each kernel's launches from the run of its own path: kernel 4 has a row
-    # per shape (its row's ``run``: the legacy and full-form windows at
-    # horizons 16, 24, 32), kernel 2 one for horizon 16 (the main path) and
-    # one for horizon 10
-    runs = {"spd_inverse": "main", "admm_iterations_structured": "main",
+    # each kernel's launches from the run of its own path: kernels 1 and 4
+    # have a row per shape (its row's ``run``: kernel 1 the production
+    # windows at horizons 16, 24, 32, kernel 4 the legacy and full-form
+    # windows at those horizons), kernel 2 one for horizon 16 (the main path)
+    # and one for horizon 10
+    runs = {"admm_iterations_structured": "main",
             "admm_iterations_structured (nb 40)": "horizon10", "run_ticks_fused": "fused"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -60,6 +60,17 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
                : "memory");
 }
 
+// v into the shared::cluster address `addr` (16-byte aligned), its 16 bytes
+// counted on `bar` (a shared::cluster address in the same CTA)
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
 // A launch of `csize`-CTA clusters of `threads` threads with `smem` bytes of
 // dynamic shared memory each, `clusters` clusters in all.
 inline cudaLaunchConfig_t cluster_config(int clusters, int csize, int threads, size_t smem,

@@ -22,13 +22,21 @@
 // (i, j) is S[rowoff(i, n) + j]: n (n + 4) / 2 floats, 75,264 B at n = 192
 // (three 256-thread CTAs per SM), 168,192 B at n = 288, 207,360 B at
 // n = 320. Where that fits one block's shared memory beside the static
-// `bad` flag, S lives there from load to store (spd_inverse_kernel<true>);
-// above (n >= 352: 297,984 B at n = 384) the same code runs on a
-// device-memory scratch of that size per matrix (spd_inverse_kernel<false>).
+// `bad` flag, S lives there from load to store (spd_inverse_kernel<true>).
+// Above (n >= 352: 297,984 B at n = 384) S is split between the two CTAs of
+// a thread-block cluster, one cluster per matrix (spd_inverse_cluster_kernel,
+// below): rank r holds the 16-row panels p with p % 2 == r, in rowoff's
+// order within each (half_rowoff), beside two staging slots of 16 n floats
+// and a copy of the peer's 16 x 16 diagonal blocks. At n = 384 rank 0's
+// half is 155,136 B (rank 1's 142,848 B), the slots 49,152 B and the blocks
+// 12,288 B: 216,576 B a CTA, one 512-thread CTA per SM (on an H100, 256
+// threads took 4.8% longer: tools/torch_spd_variants.py `t256`). Where that
+// does not fit either (n >= 416) the one-CTA code runs on a device-memory
+// scratch of n (n + 4) / 2 floats per matrix (spd_inverse_kernel<false>).
 // The up to 3 entries left of the diagonal that a packed row keeps are set to
 // 0 when its diagonal block is inverted, so no later phase masks them.
-// shape_for() alone decides the layout and the CTAs per SM;
-// spd_inverse_shape() reports it to the wrapper.
+// shape_for() alone decides the instance and the launch, by these byte
+// counts; spd_inverse_shape() reports it to the wrapper.
 //
 // Method (upper form, rows of S are rows of U and of V = U^-1):
 //  1. blocked right-looking Cholesky M = U'U, per 16-row panel p: warp 0
@@ -45,12 +53,47 @@
 //     its own);
 //  3. out = V V' (rows of V dotted, 4 x 4 tiles, upper tiles mirrored),
 //     written straight to device memory.
+//
+// The cluster instance runs the same tiles, each by the CTA that holds its
+// output rows, with the same sums in the same order; values cross between
+// the two CTAs only where a phase needs the peer's rows:
+//  1. the holder of panel q updates its rows from panel q - 1 (staged, see
+//     below; warp 0 first the diagonal block, which it then inverts, while
+//     the other warps also update its later panels from panel q - 1), forms
+//     the panel product and pushes the finished rows (columns c1..n-1) into
+//     a staging slot of the peer with st.async, counted on the slot's
+//     mbarrier; then it updates its later panels from panel q. The peer
+//     meanwhile updates its own rows; the chain of diagonal block, panel
+//     product and push runs on one CTA at a time. Received panels alternate
+//     between the two slots: the peer sends into a slot again only after
+//     it has received a panel that this CTA sent after its last read of it.
+//     A non-SPD pivot runs phase 1 to its end; then each CTA stores its
+//     `bad` flag into the peer and, after one cluster barrier, both write
+//     NaN over their rows of the output;
+//  2. per block column q each CTA forms the strip (U W_q) for its own rows
+//     (W_q from its panel, or from the copy of the peer's diagonal blocks
+//     taken after phase 1), stores it into slot q % 2 and pushes it into the
+//     peer's; both then hold the whole strip, a snapshot, so -V (U W_q) is
+//     written in place without rounds;
+//  3. after a cluster barrier (the peer's V is complete), tiles whose two
+//     row groups are both local, then, panel by panel, the peer's rows
+//     copied into a slot with distributed-shared-memory loads and the tiles
+//     (local row group, peer row group); a last cluster barrier keeps each
+//     CTA's shared memory alive while its peer copies from it.
+// Four cluster barriers a matrix: after the load, on the `bad` flag, before
+// phase 3 and before exit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <mutex>
 #include <vector>
+
+#include "cluster_push.cuh"
+
+namespace cg = cooperative_groups;
+using namespace cluster_push;
 
 namespace {
 
@@ -117,6 +160,47 @@ __device__ __forceinline__ void mac4x4(float (&acc)[4][4], const float4 (&a)[4],
       for (int kk = 0; kk < 4; ++kk) acc[r][c] += x[r][kk] * y[kk][c];
 }
 
+// Rank r of a cluster of 2 holds the 16-row panels p with p % 2 == r, each
+// in rowoff's order: element (i, j) of a row it holds is
+// S[half_rowoff(i, n, r) + j] of its half. Panel p is 16 n - 256 p - 96
+// floats; k = p / 2 of the rank's panels come before it.
+__host__ __device__ __forceinline__ int half_rowoff(int i, int n, int r) {
+  const int p = i >> 4, k = p >> 1, g = i >> 2, gl = g & 3;
+  return k * (16 * n - 96 - 256 * r) - 256 * k * (k - 1) + 4 * gl * (n - 16 * p) -
+         8 * gl * (gl - 1) + (i & 3) * (n - 4 * g) - 4 * g;
+}
+
+// floats of rank r's half: its (n / 16 + 1 - r) / 2 panels
+__host__ __device__ __forceinline__ int half_floats(int n, int r) {
+  const int k = (n / NB + 1 - r) / 2;
+  return k * (16 * n - 96 - 256 * r) - 256 * k * (k - 1);
+}
+
+// dynamic shared floats of a cluster CTA: rank 0's half (the larger), two
+// staging slots of 16 n floats and the peer's diagonal blocks, 256 floats each
+__host__ __device__ __forceinline__ int cluster_floats(int n) {
+  return half_floats(n, 0) + 32 * n + 256 * ((n / NB + 1) / 2);
+}
+
+// Row accessors: rows(i) + j addresses element (i, j).
+struct Packed {  // the whole triangle (rowoff)
+  float* S;
+  int n;
+  __device__ __forceinline__ float* operator()(int i) const { return S + rowoff(i, n); }
+};
+struct Half {  // rank r's panels (half_rowoff), S[0] at float `off` of the half
+  float* S;
+  int n, r, off;
+  __device__ __forceinline__ float* operator()(int i) const {
+    return S + (half_rowoff(i, n, r) - off);
+  }
+};
+struct Staged {  // the 16 rows of a panel from row c0 on, `stride` floats apart
+  float* S;
+  int c0, stride;
+  __device__ __forceinline__ float* operator()(int i) const { return S + (i - c0) * stride; }
+};
+
 // Warp 0: the 16 x 16 diagonal block at (c0, c0). Lane s holds column s of
 // it in registers; Cholesky U_pp, then W = U_pp^-1 from W U_pp = I column by
 // column, left to right (lane k finishes column k of W and broadcasts it by
@@ -124,12 +208,13 @@ __device__ __forceinline__ void mac4x4(float (&acc)[4][4], const float4 (&a)[4],
 // keeps the shuffled values from piling up in registers); W's upper triangle
 // replaces the block, with 0 where a packed row keeps entries left of the
 // diagonal. Sets *bad on a pivot that is not > 0.
-__device__ __forceinline__ void invert_diag_block(float* S, int n, int c0, int lane, int* bad) {
+template <class Rows>
+__device__ __forceinline__ void invert_diag_block(Rows rows, int c0, int lane, int* bad) {
   float col[NB];
 #pragma unroll
   for (int r = 0; r < NB; ++r) {
     col[r] = 0.0f;
-    if (lane < NB && r <= lane) col[r] = S[rowoff(c0 + r, n) + c0 + lane];
+    if (lane < NB && r <= lane) col[r] = rows(c0 + r)[c0 + lane];
   }
   bool ok_all = true;
   float dinv[NB];  // 1 / U(m, m)
@@ -165,22 +250,21 @@ __device__ __forceinline__ void invert_diag_block(float* S, int n, int c0, int l
   if (lane < NB) {
 #pragma unroll
     for (int i = 0; i < NB; ++i)
-      if ((i & ~3) <= lane) S[rowoff(c0 + i, n) + c0 + lane] = w[i];
+      if ((i & ~3) <= lane) rows(c0 + i)[c0 + lane] = w[i];
   }
 }
 
-// Trailing update of upper tile t (upper_tile order) right of panel c0:
-// M[a][b] -= sum_m U[c0 + m][a] U[c0 + m][b], a, b >= c1 = c0 + 16.
-__device__ __forceinline__ void trailing_tile(float* S, int n, int c0, int t) {
-  int ta, tb;
-  upper_tile(t, ta, tb);
-  const int a0 = c0 + NB + 4 * ta, b0 = c0 + NB + 4 * tb;
+// Trailing update of the 4 x 4 tile at (a0, b0) from the 16 rows of the
+// panel at c0 (read through `src`, written through `dst`):
+// M[a][b] -= sum_m U[c0 + m][a] U[c0 + m][b].
+template <class Src, class Dst>
+__device__ __forceinline__ void update_tile(Src src, Dst dst, int c0, int a0, int b0) {
   float acc[4][4];
   zero4x4(acc);
   // fully unrolled, the hoisted loads would spill at 80 registers
 #pragma unroll 4
   for (int m = 0; m < NB; ++m) {
-    const float* row = S + rowoff(c0 + m, n);
+    const float* row = src(c0 + m);
     float va[4], vb[4];
     unpack(ld4(row + a0), va);
     unpack(ld4(row + b0), vb);
@@ -191,13 +275,48 @@ __device__ __forceinline__ void trailing_tile(float* S, int n, int c0, int t) {
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    float* rp = S + rowoff(a0 + r, n) + b0;
+    float* rp = dst(a0 + r) + b0;
     float4 v = ld4(rp);
     v.x -= acc[r][0];
     v.y -= acc[r][1];
     v.z -= acc[r][2];
     v.w -= acc[r][3];
     st4(rp, v);
+  }
+}
+
+// Trailing update of upper tile t (upper_tile order) right of panel c0.
+__device__ __forceinline__ void trailing_tile(Packed S, int c0, int t) {
+  int ta, tb;
+  upper_tile(t, ta, tb);
+  update_tile(S, S, c0, c0 + NB + 4 * ta, c0 + NB + 4 * tb);
+}
+
+// out[a][b] = sum_{k >= b0} V[a][k] V[b][k] for the tile at (a0, b0), a0 <= b0,
+// stored with its mirror straight to device memory
+template <class RA, class RB>
+__device__ __forceinline__ void vv_tile(RA ra, RB rb, int n, int a0, int b0, float* Ob) {
+  float acc[4][4];
+  zero4x4(acc);
+#pragma unroll 1
+  for (int k = b0; k < n; k += 4) {
+    float va[4][4], vb[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      unpack(ld4(ra(a0 + r) + k), va[r]);
+      unpack(ld4(rb(b0 + r) + k), vb[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc[r][c] += va[r][kk] * vb[c][kk];
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    st4(Ob + (size_t)(a0 + r) * n + b0, make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    st4(Ob + (size_t)(b0 + r) * n + a0, make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]));
   }
 }
 
@@ -209,6 +328,7 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
                    float* __restrict__ scratch, int n) {
   extern __shared__ __align__(16) float smem[];
   float* S = kShared ? smem : scratch + (size_t)blockIdx.x * packed_floats(n);
+  const Packed rows{S, n};
   __shared__ int bad;
 
   const int tid = threadIdx.x;
@@ -230,7 +350,7 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
 
   // ---- 1. blocked Cholesky, M = U'U, W = U_pp^-1 on each diagonal block ----
   const int P = n / NB;
-  if (warp == 0) invert_diag_block(S, n, 0, lane, &bad);
+  if (warp == 0) invert_diag_block(rows, 0, lane, &bad);
   __syncthreads();
   for (int p = 0; p < P && !bad; ++p) {
     const int c0 = p * NB, c1 = c0 + NB;
@@ -272,12 +392,12 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
     const int ntiles = T * (T + 1) / 2;
     if (warp == 0) {
       if (c1 < n) {
-        if (lane < 10) trailing_tile(S, n, c0, lane);
+        if (lane < 10) trailing_tile(rows, c0, lane);
         __syncwarp();
-        invert_diag_block(S, n, c1, lane, &bad);
+        invert_diag_block(rows, c1, lane, &bad);
       }
     } else {
-      for (int t = 10 + tid - 32; t < ntiles; t += kThreads - 32) trailing_tile(S, n, c0, t);
+      for (int t = 10 + tid - 32; t < ntiles; t += kThreads - 32) trailing_tile(rows, c0, t);
     }
     __syncthreads();
   }
@@ -365,48 +485,281 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
   for (int t = tid; t < ntiles; t += kThreads) {
     int ta, tb;
     upper_tile(t, ta, tb);
-    const int a0 = 4 * ta, b0 = 4 * tb;
-    float acc[4][4];
-    zero4x4(acc);
-#pragma unroll 1
-    for (int k = b0; k < n; k += 4) {
-      float va[4][4], vb[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        unpack(ld4(S + rowoff(a0 + r, n) + k), va[r]);
-        unpack(ld4(S + rowoff(b0 + r, n) + k), vb[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) acc[r][c] += va[r][kk] * vb[c][kk];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      st4(Ob + (size_t)(a0 + r) * n + b0, make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
-      st4(Ob + (size_t)(b0 + r) * n + a0, make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]));
-    }
+    vv_tile(rows, rows, n, 4 * ta, 4 * tb, Ob);
   }
 }
 
-// The launch for n on the current device: smem dynamic shared bytes (0 when
-// S lives in the scratch), scratch floats per matrix (0 when S is on chip),
-// CTAs resident per SM (0: the launch does not fit).
+// ---- the cluster instance: S split between the two CTAs of a cluster -----
+
+constexpr int kClusterThreads = 512;
+
+// One matrix per cluster of 2 (blocks 2 b and 2 b + 1). The schedule is in
+// the header; the numbered comments follow it.
+template <int NT>
+__global__ void __launch_bounds__(NT, 1)
+spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out, int n) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long sbar[2];  // one per staging slot
+  __shared__ int bad, peer_bad;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), peer = r ^ 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = n / NB, G = n / 4, n4 = n / 4;
+  const int K = (P + 1 - r) / 2, Kp = (P + 1 - peer) / 2;  // panels here and in the peer
+  const size_t base = (size_t)(blockIdx.x >> 1) * n * n;
+  const float* Ab = A + base;
+  float* Ob = out + base;
+  float* stage = smem + half_floats(n, 0);  // slot s: stage + 16 n s
+  float* wpeer = stage + 32 * n;            // the peer's diagonal blocks, 16 x 16 each
+  const Half mine{smem, n, r, 0};
+  // row group gi of this CTA's 4 K: rows 4 grp(gi) .. 4 grp(gi) + 3
+  auto grp = [&](int gi) { return 4 * (r + 2 * (gi >> 2)) + (gi & 3); };
+
+  const uint32_t bar0 = smem_u32(&sbar[0]);
+  const uint32_t peer_stage = map_rank(smem_u32(stage), peer), peer_bar0 = map_rank(bar0, peer);
+  uint32_t parity = 0;  // bit s: the parity of the next wait on slot s
+  // wait until `bytes` pushed by the peer have landed in slot s
+  auto receive = [&](int s, uint32_t bytes) {
+    if (tid == 0) bar_arm(bar0 + 8 * s, bytes);
+    bar_wait(bar0 + 8 * s, (parity >> s) & 1);
+    parity ^= 1u << s;
+  };
+  // v into the peer's slot s at float `off`
+  auto push = [&](int s, int off, float4 v) {
+    st_async4(peer_stage + 4u * (16 * n * s + off), v, peer_bar0 + 8 * s);
+  };
+
+#pragma unroll 4
+  for (int e = tid; e < 16 * K * n4; e += NT) {
+    const int il = e / n4, j4 = e - il * n4;
+    const int i = 16 * (r + 2 * (il >> 4)) + (il & 15);
+    if (j4 >= (i >> 2)) st4(mine(i) + 4 * j4, ld4(Ab + (size_t)i * n + 4 * j4));
+  }
+  if (tid == 0) {
+    bar_init(bar0);
+    bar_init(bar0 + 8);
+    bar_init_fence();
+    bad = 0;
+  }
+  cluster.sync();  // both halves loaded, both CTAs' barriers exist
+
+  // ---- 1. blocked Cholesky over this CTA's panels q ------------------------
+  int sent = 0, got = 0;
+  for (int q = r; q < P; q += 2) {
+    const int c0 = q * NB, c1 = c0 + NB;
+    Staged prev{stage, c0 - NB, n};  // panel q - 1, pushed by the peer
+    // this CTA's later panels q + 2, q + 4, .. from the panel at cs, read
+    // through src, by threads t, t + stride, ..: tile t of panel pa is row
+    // group 4 pa + (t & 3), column group 4 pa + (t >> 2)
+    auto later = [&](auto src, int cs, int t, int stride) {
+      for (int pa = q + 2; pa < P;) {
+        const int cnt = 4 * (G - 4 * pa);
+        if (t >= cnt) {
+          t -= cnt;
+          pa += 2;
+          continue;
+        }
+        const int ga = 4 * pa + (t & 3), gb = 4 * pa + (t >> 2);
+        if (gb >= ga) update_tile(src, mine, cs, 4 * ga, 4 * gb);
+        t += stride;
+      }
+    };
+    if (q > 0) {
+      const int s = got++ & 1;
+      receive(s, 64u * (n - c0));
+      prev.S = stage + 16 * n * s;
+      // panel q's rows from panel q - 1: warp 0 the diagonal block, which it
+      // then inverts; meanwhile the other warps the columns right of it and
+      // the later panels from panel q - 1
+      if (warp == 0) {
+        if (lane < 10) {
+          int ta, tb;
+          upper_tile(lane, ta, tb);
+          update_tile(prev, mine, c0 - NB, c0 + 4 * ta, c0 + 4 * tb);
+        }
+        __syncwarp();
+        invert_diag_block(mine, c0, lane, &bad);
+      } else {
+        const int nt = 4 * ((n - c1) / 4);
+        for (int t = tid - 32; t < nt; t += NT - 32)
+          update_tile(prev, mine, c0 - NB, c0 + 4 * (t & 3), c1 + 4 * (t >> 2));
+        later(prev, c0 - NB, tid - 32, NT - 32);
+      }
+    } else if (warp == 0) {
+      invert_diag_block(mine, 0, lane, &bad);
+    }
+    __syncthreads();
+    // the panel product, as the one-CTA kernel's, each finished tile also
+    // pushed into the peer's next slot
+    const int ntp = n - c1, s_out = sent & 1;
+    for (int t0 = 0; t0 < ntp; t0 += NT) {
+      const int t = t0 + tid;
+      const int r0 = 4 * (t & 3), j0 = c1 + 4 * (t >> 2);
+      float acc[4][4];
+      zero4x4(acc);
+      if (t < ntp) {
+#pragma unroll 1
+        for (int m = 0; m < r0 + 4; ++m) {
+          const float* row = mine(c0 + m);
+          float w[4], x[4];
+          unpack(ld4(row + c0 + r0), w);
+          unpack(ld4(row + j0), x);
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[rr][c] += w[rr] * x[c];
+        }
+      }
+      __syncthreads();  // every tile of the round has read its column strip
+      if (t < ntp) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const float4 v = make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+          st4(mine(c0 + r0 + rr) + j0, v);
+          push(s_out, (r0 + rr) * n + j0, v);
+        }
+      }
+    }
+    if (ntp > 0) ++sent;
+    __syncthreads();
+    later(mine, c0, tid, NT);  // the later panels from panel q
+    __syncthreads();
+  }
+
+  // both CTAs learn whether either met a pivot that is not > 0
+  if (tid == 0) *cluster.map_shared_rank(&peer_bad, peer) = bad;
+  cluster.sync();
+  if (bad || peer_bad) {
+    const float qnan = __int_as_float(0x7fc00000);
+    const float4 q4 = make_float4(qnan, qnan, qnan, qnan);
+    for (int e = tid; e < 16 * K * n4; e += NT) {
+      const int il = e / n4, j4 = e - il * n4;
+      st4(Ob + (size_t)(16 * (r + 2 * (il >> 4)) + (il & 15)) * n + 4 * j4, q4);
+    }
+    return;  // the peer reads nothing of this CTA from here on
+  }
+
+  // ---- 2. V = U^-1 in place, 16-column blocks left to right ---------------
+  // the peer's diagonal blocks W, which no phase writes again
+  const Half theirs{cluster.map_shared_rank(smem, peer), n, peer, 0};
+  for (int e = tid; e < 64 * Kp; e += NT) {
+    const int pk = e >> 6, i = (e >> 2) & 15, l4 = e & 3, c0 = NB * (peer + 2 * pk);
+    if (l4 >= (i >> 2)) st4(wpeer + 256 * pk + 16 * i + 4 * l4, ld4(theirs(c0 + i) + c0 + 4 * l4));
+  }
+  __syncthreads();
+  for (int q = 1; q < P; ++q) {
+    const int c0 = q * NB, s = q & 1;
+    const int rows = NB * ((q + 1 - r) / 2), peer_rows = NB * ((q + 1 - peer) / 2);
+    float* strip = stage + 16 * n * s;  // strip[16 k + c] = (U W_q)[k][c], k < c0
+    const bool own_w = (q & 1) == r;
+    const float* wq = wpeer + 256 * (q >> 1);
+    // (U W_q) for this CTA's rows k < c0: tile t = rows 4 grp(t >> 2).., block
+    // columns 4 (t & 3)..
+    for (int t = tid; t < rows; t += NT) {
+      const int k0 = 4 * grp(t >> 2), cc = 4 * (t & 3);
+      float acc[4][4];
+      zero4x4(acc);
+#pragma unroll 1
+      for (int l0 = 0; l0 <= cc; l0 += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          a[rr] = ld4(mine(k0 + rr) + c0 + l0);
+          b[rr] = ld4((own_w ? mine(c0 + l0 + rr) + c0 : wq + 16 * (l0 + rr)) + cc);
+        }
+        mac4x4(acc, a, b);
+      }
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const float4 v = make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+        st4(strip + 16 * (k0 + rr) + cc, v);
+        push(s, 16 * (k0 + rr) + cc, v);
+      }
+    }
+    if (peer_rows > 0) receive(s, 64u * peer_rows);
+    __syncthreads();  // the whole strip is here
+    // V[i][block] = -sum_{i <= k < c0} V[i][k] (U W_q)[k][block] for this
+    // CTA's rows i < c0, two neighbouring lanes a tile
+    const int ni = 2 * rows;
+    for (int t0 = 0; t0 < ni; t0 += NT) {
+      const int it = t0 + tid, t = it >> 1, half = it & 1;
+      const int i0 = 4 * grp(t >> 2), cc = 4 * (t & 3);
+      float acc[4][4];
+      zero4x4(acc);
+      if (it < ni) {
+#pragma unroll 1
+        for (int k = i0 + 4 * half; k < c0; k += 8) {
+          float4 a[4], b[4];
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            a[rr] = ld4(mine(i0 + rr) + k);
+            b[rr] = ld4(strip + 16 * (k + rr) + cc);
+          }
+          mac4x4(acc, a, b);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[rr][c] += __shfl_xor_sync(kFull, acc[rr][c], 1);
+      if (it < ni && half == 0) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+          st4(mine(i0 + rr) + c0 + cc,
+              make_float4(-acc[rr][0], -acc[rr][1], -acc[rr][2], -acc[rr][3]));
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- 3. out = V V' --------------------------------------------------------
+  cluster.sync();  // the peer's V is complete
+  const int gm = 4 * K, nt = gm * (gm + 1) / 2;
+  for (int t = tid; t < nt; t += NT) {
+    int ta, tb;
+    upper_tile(t, ta, tb);
+    vv_tile(mine, mine, n, 4 * grp(ta), 4 * grp(tb), Ob);
+  }
+  // the tiles (row group here, row group of the peer's panel pb), the
+  // panel's packed rows first copied into slot 0
+  for (int pb = peer; pb < P; pb += 2) {
+    const int ra = 4 * ((pb + 1 - r) / 2);  // this CTA's row groups above panel pb
+    if (ra == 0) continue;
+    const int first = half_rowoff(NB * pb, n, peer) + NB * pb, len = 16 * n - 256 * pb - 96;
+    __syncthreads();  // the slot's previous panel is read
+#pragma unroll 4
+    for (int e = 4 * tid; e < len; e += 4 * NT) st4(stage + e, ld4(theirs.S + first + e));
+    __syncthreads();
+    const Half panel{stage, n, peer, first};
+    for (int t = tid; t < 4 * ra; t += NT)
+      vv_tile(mine, panel, n, 4 * grp(t % ra), 4 * (4 * pb + t / ra), Ob);
+  }
+  cluster.sync();  // the peer has copied what it reads of this CTA
+}
+
+// The launch for n on the current device: smem dynamic shared bytes per CTA
+// (0 when S lives in the scratch), scratch floats per matrix (0 when S is on
+// chip), resident (CTAs per SM for one CTA a matrix, clusters on the device
+// for a cluster; 0: the launch does not fit) and csize, the CTAs a matrix
+// (1 or 2).
 struct Shape {
   int dev, n;
   size_t smem;
   long long scratch;
-  int ctas;
+  int resident, csize;
 };
 
-// The one place that decides the layout: S on chip where n (n + 4) / 2
-// floats fit one block's opt-in shared memory beside the kernel's static
-// shared memory, else in a scratch buffer. Kept per (device, n), so a
-// repeated launch makes none of these host calls again; on a device's first
-// query the on-chip instance is allowed all the dynamic shared memory a
-// block may opt in to (the occupancy follows the bytes each launch asks).
+// The one place that decides the instance: S on chip in one CTA where
+// n (n + 4) / 2 floats fit one block's opt-in shared memory beside the
+// kernel's static shared memory; else split over a cluster of 2 where
+// cluster_floats(n) fit a CTA beside the cluster kernel's; else in a
+// scratch buffer. Byte counts alone decide: a cluster shape that fits them
+// but of which no cluster is resident is refused at launch, not moved to
+// the scratch. Kept per (device, n), so a repeated launch makes none of
+// these host calls again; on a device's first query the one-CTA on-chip
+// instance is allowed all the dynamic shared memory a block may opt in to
+// (the occupancy follows the bytes each launch asks; resident_clusters
+// raises the cluster kernel's limit to its shape).
 cudaError_t shape_for(int n, Shape* out) {
   static std::mutex mu;
   static std::vector<Shape> known;
@@ -433,15 +786,25 @@ cudaError_t shape_for(int n, Shape* out) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)room);
     if (err != cudaSuccess) return err;
   }
-  Shape s = {dev, n, 0, 0, 0};
+  auto cluster_kernel = spd_inverse_cluster_kernel<kClusterThreads>;
+  cudaFuncAttributes fc;
+  if ((err = cudaFuncGetAttributes(&fc, cluster_kernel)) != cudaSuccess) return err;
+  Shape s = {dev, n, 0, 0, 0, 1};
   const size_t bytes = (size_t)packed_floats(n) * sizeof(float);
+  const size_t cbytes = (size_t)cluster_floats(n) * sizeof(float);
   if (bytes <= room) {
     s.smem = bytes;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.ctas, spd_inverse_kernel<true>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.resident, spd_inverse_kernel<true>,
                                                         kThreads, bytes);
+  } else if (cbytes + fc.sharedSizeBytes <= (size_t)optin) {
+    s.smem = cbytes;
+    s.csize = 2;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(1, 2, kClusterThreads, cbytes, nullptr, &attr);
+    err = resident_clusters(cluster_kernel, cfg, &s.resident);
   } else {
     s.scratch = packed_floats(n);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.ctas, spd_inverse_kernel<false>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.resident, spd_inverse_kernel<false>,
                                                         kThreads, 0);
   }
   if (err != cudaSuccess) return err;
@@ -453,19 +816,21 @@ cudaError_t shape_for(int n, Shape* out) {
 }  // namespace
 
 // The launch spd_inverse_f32 makes for n on the current device: its dynamic
-// shared memory in bytes, the scratch floats it needs per matrix (0: the
-// working set is on chip, pass scratch = NULL) and the CTAs resident per SM.
-// Returns a cudaError_t (0 on success); cudaErrorInvalidValue unless
-// n % 16 == 0.
+// shared memory in bytes per CTA, the scratch floats it needs per matrix (0:
+// the working set is on chip, pass scratch = NULL), how many are resident
+// (CTAs per SM for one CTA a matrix, clusters on the device for a cluster)
+// and the CTAs a matrix (1, or 2 for a cluster). Returns a cudaError_t (0 on
+// success); cudaErrorInvalidValue unless n % 16 == 0.
 extern "C" int spd_inverse_shape(int n, int* smem_bytes, long long* scratch_floats,
-                                 int* ctas_per_sm) {
+                                 int* resident, int* csize) {
   if (n <= 0 || n % NB != 0) return (int)cudaErrorInvalidValue;
   Shape s;
   const cudaError_t err = shape_for(n, &s);
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = (int)s.smem;
   *scratch_floats = s.scratch;
-  *ctas_per_sm = s.ctas;
+  *resident = s.resident;
+  *csize = s.csize;
   return 0;
 }
 
@@ -473,19 +838,25 @@ extern "C" int spd_inverse_shape(int n, int* smem_bytes, long long* scratch_floa
 // n % 16 == 0; scratch is NULL or a (batch, scratch_floats) f32 device buffer
 // as spd_inverse_shape says. Returns the cudaError_t of the launch (0 on
 // success); cudaErrorInvalidValue if scratch does not match the shape,
-// cudaErrorInvalidConfiguration if no CTA fits.
+// cudaErrorInvalidConfiguration if no CTA or no cluster fits.
 extern "C" int spd_inverse_f32(const float* A, float* out, float* scratch, int batch, int n,
                                cudaStream_t stream) {
   if (n <= 0 || n % NB != 0) return (int)cudaErrorInvalidValue;
   Shape s;
   cudaError_t err = shape_for(n, &s);
   if (err != cudaSuccess) return (int)err;
-  if (s.ctas < 1) return (int)cudaErrorInvalidConfiguration;
+  if (s.resident < 1) return (int)cudaErrorInvalidConfiguration;
   if ((s.scratch > 0) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
-  if (s.scratch == 0)
+  if (s.csize == 2) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(batch, 2, kClusterThreads, s.smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, spd_inverse_cluster_kernel<kClusterThreads>, A, out, n);
+    if (err != cudaSuccess) return (int)err;
+  } else if (s.scratch == 0) {
     spd_inverse_kernel<true><<<batch, kThreads, s.smem, stream>>>(A, out, nullptr, n);
-  else
+  } else {
     spd_inverse_kernel<false><<<batch, kThreads, 0, stream>>>(A, out, scratch, n);
+  }
   return (int)cudaGetLastError();
 }

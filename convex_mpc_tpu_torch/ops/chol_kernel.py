@@ -1,12 +1,12 @@
 """Batched SPD inverse: the hand-written CUDA kernel and its plain version.
 
 Replaces ``convex_mpc_tpu/ops/chol_kernel.py::spd_inverse`` (a Pallas TPU
-kernel). The CUDA kernel is ``csrc/spd_inverse.cu`` (one block per matrix;
-its C side decides whether the packed working set lives in shared memory or
-in a device-memory scratch buffer, and ``spd_inverse_shape`` reads that
-choice back; design and bound in its header). The wrapper takes
-the plain PyTorch version for CPU tensors only; a CUDA tensor launches the
-kernel or raises.
+kernel). The CUDA kernel is ``csrc/spd_inverse.cu``; its C side decides
+whether the packed working set lives in one CTA's shared memory, split over
+the shared memories of a cluster of two CTAs, or in a device-memory scratch
+buffer, and ``spd_inverse_shape`` reads that choice back (design and bound
+in its header). The wrapper takes the plain PyTorch version for CPU tensors
+only; a CUDA tensor launches the kernel or raises.
 
 Both versions return NaN for every matrix whose Cholesky meets a pivot that
 is not positive: the polish certificate relies on that signal.
@@ -39,7 +39,7 @@ def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
 
 
 _lib = None
-_shapes: dict[tuple[int, int], tuple[int, int, int]] = {}
+_shapes: dict[tuple[int, int], tuple[int, int, int, int]] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -49,6 +49,7 @@ def _library() -> ctypes.CDLL:
         lib = cuda_build.load("spd_inverse")
         lib.spd_inverse_shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                                           ctypes.POINTER(ctypes.c_longlong),
+                                          ctypes.POINTER(ctypes.c_int),
                                           ctypes.POINTER(ctypes.c_int)]
         lib.spd_inverse_shape.restype = ctypes.c_int
         lib.spd_inverse_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -58,33 +59,36 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def spd_inverse_shape(n: int) -> tuple[int, int, int]:
+def spd_inverse_shape(n: int) -> tuple[int, int, int, int]:
     """The launch ``csrc/spd_inverse.cu`` makes for n on the current card, as
-    its C side chooses it: (dynamic shared-memory bytes, scratch floats per
-    matrix, CTAs resident per SM). Exactly one of the first two is 0: the
-    packed working set of n (n + 4) / 2 floats is on chip or in the scratch.
-    Asked of the C side once per (card, n)."""
+    its C side chooses it: (dynamic shared-memory bytes per CTA, scratch
+    floats per matrix, resident, CTAs per cluster). One CTA a matrix (4th
+    field 1) holds the packed working set of n (n + 4) / 2 floats on chip
+    (scratch 0) or in the scratch (shared bytes 0), and ``resident`` counts
+    its CTAs per SM; a cluster of 2 (4th field 2) splits it between its two
+    CTAs' shared memories, and ``resident`` counts the clusters resident on
+    the card at once. Asked of the C side once per (card, n)."""
     key = (torch.cuda.current_device(), n)
     shape = _shapes.get(key)
     if shape is None:
-        smem, scratch, ctas = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_int(0)
-        cuda_build.check(_library().spd_inverse_shape(n, ctypes.byref(smem), ctypes.byref(scratch),
-                                                      ctypes.byref(ctas)), "spd_inverse shape")
-        shape = _shapes[key] = (smem.value, scratch.value, ctas.value)
+        out = [ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0)]
+        cuda_build.check(_library().spd_inverse_shape(n, *map(ctypes.byref, out)),
+                         f"spd_inverse shape (n={n})")
+        shape = _shapes[key] = tuple(v.value for v in out)
     return shape
 
 
 def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
     cuda_build.require_cuda("spd_inverse", A, out)
     B, n = A.shape[0], A.shape[1]
-    _, scratch_floats, _ = spd_inverse_shape(n)
+    _, scratch_floats, _, _ = spd_inverse_shape(n)
     scratch = None
     if scratch_floats:
         scratch = torch.empty((B, scratch_floats), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = _library().spd_inverse_f32(A.data_ptr(), out.data_ptr(),
                                      None if scratch is None else scratch.data_ptr(), B, n, stream)
-    cuda_build.check(err, "spd_inverse")
+    cuda_build.check(err, f"spd_inverse (n={n})")
 
 
 def spd_inverse(A: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,10 @@ tick window
 ``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
 microseconds per call of its wrapper, 100 calls queued without a wait), and
-one with ``spd_inverse``'s error on ``chip_smoke.attractor_kkt`` (cond
-~1e4) against the f64 inverse, as a fraction of its largest entry, and its
-residual |K out - I|. To compare two checkouts, run it on each in one call
+one per horizon, 16 and 32 (n = 192 and 384), with ``spd_inverse``'s error
+on ``chip_smoke.attractor_kkt`` (cond ~1e4) against the f64 inverse, as a
+fraction of its largest entry, and its residual |K out - I|, each beside
+the plain version's. To compare two checkouts, run it on each in one call
 on one card: older, newer, newer, older.
 """
 
@@ -97,11 +98,16 @@ def spd_times(root, smoke, spd_inverse, dev, B) -> None:
         print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": n,
                           "ms": ms, "host_us": host_us(lambda: spd_inverse(A))}))
         del A
-    kkt = smoke.attractor_kkt(dev)
-    k = smoke.spd_kkt_errors(kkt)
-    print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
-                      "case": "attractor-rho KKT", "err_of_scale": k["e_kernel"] / k["kscale"],
-                      "resid": k["r_kernel"]}))
+    for horizon in (16, 32):
+        kkt = smoke.attractor_kkt(dev, horizon=horizon)
+        k = smoke.spd_kkt_errors(kkt)
+        print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],
+                          "case": f"attractor-rho KKT, horizon {horizon}",
+                          "err_of_scale": k["e_kernel"] / k["kscale"],
+                          "plain_err_of_scale": k["e_plain"] / k["kscale"],
+                          "resid": k["r_kernel"], "plain_resid": k["r_plain"]}))
+        del kkt
+        torch.cuda.empty_cache()
 
 
 L2_BYTES = 50e6  # the H100's L2

@@ -8,12 +8,13 @@ configures JAX, so on a machine without JAX run, from the repo root:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Bars as in tests/test_torch_mpc.py: spd_inverse within 5e-5 x max|plain|
-with |A out - I| < 1e-4 on a random SPD batch (n = 32 up to 384: the smallest
+with |A out - I| < 1e-4 on a random SPD batch (n = 32 up to 480: the smallest
 tile count, the largest n whose packed working set fits in shared memory at
-several CTAs per SM, and n = 384 with it in device memory; B = 1 and
-B = 133), a matrix failing at its first pivot and one failing only in its
-last panel all NaN and their neighbours finite; on the solver's KKT at
-attractor-region rho, spd_inverse's error and residual against the f64
+several CTAs per SM, n = 352 and 384 split over a cluster of 2 CTAs, 416 and
+480 in device memory; B = 1 and B = 133 at n = 192 and 384), a matrix
+failing at its first pivot and one failing only in its last panel all NaN
+and their neighbours finite; on the solver's KKT at attractor-region rho at
+horizons 16 and 32, spd_inverse's error and residual against the f64
 inverse at most twice the plain version's; the structured ADMM chunk
 bitwise equal to its plain version (nb = 40, 64, 96, 128: horizons 10, 16, 24, 32;
 nb = 40 is the kernel's generic instance). As in
@@ -95,7 +96,7 @@ def _check_spd(A, bad=()):
     assert (A @ out - torch.eye(n, device="cuda")).abs().max().item() < 1e-4
 
 
-@pytest.mark.parametrize("n", [32, 96, 192, 224, 256, 288, 384])
+@pytest.mark.parametrize("n", [32, 96, 192, 224, 256, 288, 352, 384, 416, 480])
 def test_spd_inverse_kernel_matches_plain(n):
     _need_cuda()
     A = spd_batch(16, n, 7, torch.device("cuda"))
@@ -103,32 +104,40 @@ def test_spd_inverse_kernel_matches_plain(n):
     _check_spd(A, bad=(3, 9))
 
 
+@pytest.mark.parametrize("n", [192, 384])
 @pytest.mark.parametrize("B", [1, 133])
-def test_spd_inverse_kernel_batch_sizes(B):
-    """One matrix, and more matrices than the card has SMs (132)."""
+def test_spd_inverse_kernel_batch_sizes(B, n):
+    """One matrix, and more matrices than the card has SMs (132), in one CTA
+    (n = 192) and in clusters of 2 (n = 384)."""
     _need_cuda()
-    _check_spd(spd_batch(B, 192, 5, torch.device("cuda")))
+    _check_spd(spd_batch(B, n, 5, torch.device("cuda")))
 
 
-def test_spd_inverse_kernel_on_attractor_kkt():
-    """The solver's KKT at attractor-region rho (cond ~1e4, B = 512, n = 192):
-    the kernel finite, its error and residual against the f64 inverse at
-    most twice the plain version's."""
+@pytest.mark.parametrize("horizon", [16, 32])
+def test_spd_inverse_kernel_on_attractor_kkt(horizon):
+    """The solver's KKT at attractor-region rho (cond ~1e4, B = 512, n = 192
+    at horizon 16 and 384 at horizon 32): the kernel finite, its error and
+    residual against the f64 inverse at most twice the plain version's."""
     _need_cuda()
-    k = spd_kkt_errors(attractor_kkt(torch.device("cuda")))
+    k = spd_kkt_errors(attractor_kkt(torch.device("cuda"), horizon=horizon))
     assert k["within_bar"], k
 
 
 def test_spd_inverse_shape():
-    """The C side's choice: n = 192 on chip with at least 2 CTAs per SM,
-    288 on chip, 384 in a scratch of n (n + 4) / 2 floats per matrix."""
+    """The C side's choice: n = 192 on chip in one CTA with at least 2 CTAs
+    per SM, 288 on chip in one CTA; 384 split over a cluster of 2 CTAs, each
+    with its half of the panels, two staging slots of 16 n floats and the
+    peer's diagonal blocks (216,576 B), no scratch; 480 in a scratch of
+    n (n + 4) / 2 floats per matrix."""
     _need_cuda()
-    smem, scratch, ctas = TCK.spd_inverse_shape(192)
-    assert (smem, scratch) == (192 * 196 * 2, 0) and ctas >= 2
-    smem, scratch, ctas = TCK.spd_inverse_shape(288)
-    assert (smem, scratch) == (288 * 292 * 2, 0) and ctas >= 1
-    smem, scratch, ctas = TCK.spd_inverse_shape(384)
-    assert (smem, scratch) == (0, 384 * 388 // 2) and ctas >= 1
+    smem, scratch, resident, csize = TCK.spd_inverse_shape(192)
+    assert (smem, scratch, csize) == (192 * 196 * 2, 0, 1) and resident >= 2
+    smem, scratch, resident, csize = TCK.spd_inverse_shape(288)
+    assert (smem, scratch, csize) == (288 * 292 * 2, 0, 1) and resident >= 1
+    smem, scratch, resident, csize = TCK.spd_inverse_shape(384)
+    assert (smem, scratch, csize) == (216576, 0, 2) and resident >= 1
+    smem, scratch, resident, csize = TCK.spd_inverse_shape(480)
+    assert (smem, scratch, csize) == (0, 480 * 484 // 2, 1) and resident >= 1
 
 
 @pytest.mark.parametrize("nb", [40, 64, 96, 128])
