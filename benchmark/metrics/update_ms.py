@@ -1,0 +1,7 @@
+"""Host milliseconds a cycle of the update stage (``mpc_cycle_batch(profile=)``)."""
+
+from benchmark.layers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "update")
