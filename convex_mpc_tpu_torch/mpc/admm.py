@@ -14,6 +14,9 @@ Port of ``convex_mpc_tpu/mpc/admm.py``:
   batch-global, so here they are host reads: whether to polish and whether
   to refactor/continue are read once per chunk, the ladder's round
   condition once per round, and the snap failures' count once per polish;
+  each such read has a ``mpc.solve.read.<site>`` span and a
+  ``host_reads.<site>`` counter (``utils/profiling.py``), beside the spans of
+  the solve's phases and the counts of KKT factorizations and polish solves;
 - the legacy fixed-segment ``solve`` / ``solve_batch`` on a dense
   ``QpData``: Ruiz scaling, ``SEGMENTS`` equal iteration segments with a
   Cholesky refactorization and a per-scenario rho update between them, the
@@ -34,6 +37,7 @@ from convex_mpc_tpu_torch.mpc.qp import QpData
 from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
 from convex_mpc_tpu_torch.utils.interop import tree_map
+from convex_mpc_tpu_torch.utils.profiling import count, span
 
 
 class AdmmState(NamedTuple):
@@ -209,6 +213,8 @@ def _polish_core(o: PolishOps, a_lo, a_hi, reduced: bool):
         rhs_r = -torch.einsum("bnm,bn->bm", Pi, o.q + _bmv(o.p_dense, x_p))
         djr = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-30))
         Hn = H / (djr[:, :, None] * djr[:, None, :]) + 1e-6 * eye
+        count("polish_solves")
+        count("polish_rows", B)
         # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
         # (convex_mpc_tpu/mpc/admm.py:670-676), not a stand-in for the kernel
         if nz % 32 == 0:
@@ -267,17 +273,23 @@ def _polish_ladder(o: PolishOps, act_lo, act_hi, polish_rounds: int, eps_abs):
     ok_pol = torch.zeros((B,), dtype=torch.bool, device=o.q.device)
     r = 0
     while True:
-        x_k, y_k, st_k = _polish_core(o, a_lo, a_hi, reduced=True)
-        ok_k = _polish_certify(o, a_lo, a_hi, x_k, y_k, st_k, eps_abs)
-        o_k = torch.where(ok_k, _polish_obj(o, x_k), big)
-        # a certified scenario keeps its point through later rounds
-        take = (o_k < best_obj) & ~ok_pol
-        x_pol_raw = torch.where(take[:, None], x_k, x_pol_raw)
-        best_obj = torch.where(take, o_k, best_obj)
-        ok_pol = ok_pol | ok_k
-        a_lo, a_hi = _polish_refine(o, a_lo, a_hi, x_k, y_k)
+        with span("mpc.solve.polish.round"):
+            x_k, y_k, st_k = _polish_core(o, a_lo, a_hi, reduced=True)
+            ok_k = _polish_certify(o, a_lo, a_hi, x_k, y_k, st_k, eps_abs)
+            o_k = torch.where(ok_k, _polish_obj(o, x_k), big)
+            # a certified scenario keeps its point through later rounds
+            take = (o_k < best_obj) & ~ok_pol
+            x_pol_raw = torch.where(take[:, None], x_k, x_pol_raw)
+            best_obj = torch.where(take, o_k, best_obj)
+            ok_pol = ok_pol | ok_k
+            a_lo, a_hi = _polish_refine(o, a_lo, a_hi, x_k, y_k)
         r += 1
-        if r >= polish_rounds or bool(ok_pol.all()):
+        if r >= polish_rounds:
+            break
+        with span("mpc.solve.read.ladder"):
+            count("host_reads.ladder")
+            done = bool(ok_pol.all())
+        if done:
             break
     return x_pol_raw, ok_pol
 
@@ -335,12 +347,14 @@ def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3
 
 
 def _factorize(setup: KktSetup, rho) -> torch.Tensor:
-    M = kkt_matrix(setup, rho)
-    if M.shape[-1] % 32 == 0:
-        return spd_inverse(M)
-    # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
-    # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
-    return spd_inverse_plain(M)
+    count("kkt_factorizations")
+    with span("mpc.solve.factor"):
+        M = kkt_matrix(setup, rho)
+        if M.shape[-1] % 32 == 0:
+            return spd_inverse(M)
+        # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
+        # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
+        return spd_inverse_plain(M)
 
 
 # ---------------------------------------------------------------------------
@@ -394,35 +408,36 @@ def solve_adaptive(
         raise ValueError("condensed layout: 4 pyramid rows per block, nu | nz")
     first_step_vars = nu
 
-    if isinstance(qp, StructuredQp):
-        C_raw = qp.C
-        box_diag_raw = torch.ones((B, nz), dtype=dtype, device=dev)
-    else:
-        if qp.p_dense is None:
-            raise ValueError("solve_adaptive takes a dense-P QP (the condensed form)")
-        face_rows = const(("face_rows", nb), dev,
-                          lambda d: torch.arange(m_fr, device=d).reshape(nb, 4))
-        blk_cols = const(("blk_cols", nb), dev,
-                         lambda d: torch.arange(nz, device=d).reshape(nb, 3))
-        C_raw = qp.A[:, face_rows[:, :, None], blk_cols[:, None, :]]
-        box_diag_raw = torch.diagonal(qp.A[:, m_fr:, :], dim1=-2, dim2=-1)
-        if debug:
-            A_rec = torch.zeros_like(qp.A)
-            A_rec[:, face_rows[:, :, None], blk_cols[:, None, :]] = C_raw
-            A_rec[:, m_fr:, :] = torch.diag_embed(box_diag_raw)
-            off_block = (qp.A - A_rec).abs().max().item()
-            print(f"solve_adaptive dense-A off-block max |a| = {off_block} "
-                  f"(must be 0: off-block entries are dropped)")
-    setup = kkt_setup(qp.p_dense, qp.q, C_raw, box_diag_raw, qp.l, qp.u, sigma, eq_scale,
-                      scaling_iters)
-    s, is_eq, w_vec = setup.s, setup.is_eq, setup.w_vec
+    with span("mpc.solve.setup"):
+        if isinstance(qp, StructuredQp):
+            C_raw = qp.C
+            box_diag_raw = torch.ones((B, nz), dtype=dtype, device=dev)
+        else:
+            if qp.p_dense is None:
+                raise ValueError("solve_adaptive takes a dense-P QP (the condensed form)")
+            face_rows = const(("face_rows", nb), dev,
+                              lambda d: torch.arange(m_fr, device=d).reshape(nb, 4))
+            blk_cols = const(("blk_cols", nb), dev,
+                             lambda d: torch.arange(nz, device=d).reshape(nb, 3))
+            C_raw = qp.A[:, face_rows[:, :, None], blk_cols[:, None, :]]
+            box_diag_raw = torch.diagonal(qp.A[:, m_fr:, :], dim1=-2, dim2=-1)
+            if debug:
+                A_rec = torch.zeros_like(qp.A)
+                A_rec[:, face_rows[:, :, None], blk_cols[:, None, :]] = C_raw
+                A_rec[:, m_fr:, :] = torch.diag_embed(box_diag_raw)
+                off_block = (qp.A - A_rec).abs().max().item()
+                print(f"solve_adaptive dense-A off-block max |a| = {off_block} "
+                      f"(must be 0: off-block entries are dropped)")
+        setup = kkt_setup(qp.p_dense, qp.q, C_raw, box_diag_raw, qp.l, qp.u, sigma, eq_scale,
+                          scaling_iters)
+        s, is_eq, w_vec = setup.s, setup.is_eq, setup.w_vec
 
-    x = state.x / s.d
-    z = torch.clamp(state.z * s.e, s.l, s.u)
-    y = s.c[:, None] * state.y / s.e
-    rho = torch.clamp(state.rho, 1e-6, 1e6)
-    if rho.ndim == 0:
-        rho = rho.expand(B).clone()
+        x = state.x / s.d
+        z = torch.clamp(state.z * s.e, s.l, s.u)
+        y = s.c[:, None] * state.y / s.e
+        rho = torch.clamp(state.rho, 1e-6, 1e6)
+        if rho.ndim == 0:
+            rho = rho.expand(B).clone()
 
     box_diag = s.box_diag
 
@@ -458,6 +473,7 @@ def solve_adaptive(
         """Certified accept: the snap proposal (``snap_first``), then the
         reduced ladder for the scenarios it did not certify: none, a
         compacted sub-batch of ``cap`` rows, or the whole batch."""
+        count("polish_attempts")
         fin_l = torch.isfinite(qp.l)
         fin_u = torch.isfinite(qp.u)
         y_raw = s.e * y / s.c[:, None]
@@ -479,12 +495,19 @@ def solve_adaptive(
             x_base = torch.zeros_like(x_it_raw)
         need = ~ok_sn
         cap = B if (B < 16 or not snap_first) else max(B // polish_cap_div, 8)
-        count = B if not snap_first else int(need.sum())  # host read
-        if count == 0:
+        if snap_first:
+            with span("mpc.solve.read.snap_count"):
+                count("host_reads.snap_count")
+                n_need = int(need.sum())
+        else:
+            n_need = B
+        if n_need == 0:
             x_pol_raw, ok_pol = x_base, ok_sn
-        elif count <= cap < B:
+        elif n_need <= cap < B:
             # the snap failures alone, gathered into a sub-batch of their own
-            idx = need.nonzero()[:, 0]
+            with span("mpc.solve.read.snap_rows"):  # nonzero waits for its size
+                count("host_reads.snap_rows")
+                idx = need.nonzero()[:, 0]
             o_sub = tree_map(lambda a: a[idx], ops)
             x_s, ok_s = _polish_ladder(o_sub, act_lo[idx], act_hi[idx], polish_rounds, eps_abs)
             x_pol_raw, ok_pol = x_base.clone(), ok_sn.clone()
@@ -515,71 +538,86 @@ def solve_adaptive(
     keep_going = n_chunks > 0
     while keep_going:
         x_prev = x
-        x, z, y = chunk_iters(x, z, y, rho, Minv)
-        pr, dr = residuals(x, z, y)
-        rho_ok = rho <= rho_accept_max
-        step = torch.amax(torch.abs(s.d * (x - x_prev)), dim=-1)
-        stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
-        if debug:
-            f = lambda v: v.cpu().numpy()  # noqa: E731
-            print(f"chunk {it} rho={f(rho)} pr={f(pr)} dr={f(dr)} step={f(step)}")
-        newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
-        iters_done = (it + 1) * check_every
-        conv_iter = torch.where(newly & (conv_iter < 0), iters_done, conv_iter).to(torch.int32)
-        converged = converged | newly
+        with span("mpc.solve.chunk"):
+            x, z, y = chunk_iters(x, z, y, rho, Minv)
+        with span("mpc.solve.adapt"):
+            pr, dr = residuals(x, z, y)
+            rho_ok = rho <= rho_accept_max
+            step = torch.amax(torch.abs(s.d * (x - x_prev)), dim=-1)
+            stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+            if debug:
+                f = lambda v: v.cpu().numpy()  # noqa: E731
+                print(f"chunk {it} rho={f(rho)} pr={f(pr)} dr={f(dr)} step={f(step)}")
+            newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
+            iters_done = (it + 1) * check_every
+            conv_iter = torch.where(newly & (conv_iter < 0), iters_done,
+                                    conv_iter).to(torch.int32)
+            converged = converged | newly
         if polish:
             at_cap = (it + 1) >= n_chunks
-            want_pol = at_cap or bool(converged.all())  # host read, once per chunk
+            want_pol = at_cap
+            if not at_cap:
+                with span("mpc.solve.read.want_polish"):  # host read, once per chunk
+                    count("host_reads.want_polish")
+                    want_pol = bool(converged.all())
             if want_pol:
-                x_pol_buf, pol_ok = attempt_polish(x, y, step)
-            x_scale = torch.amax(torch.abs((s.d * x)[:, :first_step_vars]), dim=-1)
-            step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
-            if want_pol and not at_cap:
-                converged = converged & pol_ok & step_ok
-            conv_iter = torch.where(converged, conv_iter, -1).to(torch.int32)
-        at_boundary = ((it + 1) % adapt_stride) == 0
-        can = (~converged) & (d_count < max_adapts) if at_boundary else torch.zeros_like(converged)
-        ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
-        rho_desc = torch.clamp(rho * torch.clamp(ratio, 0.1, 1.0), 1e-6, 1e6)
-        moved = torch.abs(torch.log(rho_desc / rho)) > log_ratio
-        descend = can & moved
-        d_count = d_count + descend.to(torch.int32)
-        rho_new = torch.where(descend, rho_desc, rho)
-        if (it + 1) == rescue_chunk:
-            rescue = (~converged) & (rho <= rho_accept_max)
-        else:
-            rescue = torch.zeros_like(converged)
-        rho_new = torch.where(rescue, 0.1, rho_new)
-        d_count = torch.where(rescue, 0, d_count).to(torch.int32)
-        gate_desc = (~converged) & (pr <= 1.0) & (dr <= 1.0) & (~rho_ok)
-        rho_new = torch.where(gate_desc, torch.clamp(rho * 0.1, min=1e-4), rho_new)
+                with span("mpc.solve.polish"):
+                    x_pol_buf, pol_ok = attempt_polish(x, y, step)
+        with span("mpc.solve.adapt"):
+            if polish:
+                x_scale = torch.amax(torch.abs((s.d * x)[:, :first_step_vars]), dim=-1)
+                step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
+                if want_pol and not at_cap:
+                    converged = converged & pol_ok & step_ok
+                conv_iter = torch.where(converged, conv_iter, -1).to(torch.int32)
+            at_boundary = ((it + 1) % adapt_stride) == 0
+            can = ((~converged) & (d_count < max_adapts) if at_boundary
+                   else torch.zeros_like(converged))
+            ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
+            rho_desc = torch.clamp(rho * torch.clamp(ratio, 0.1, 1.0), 1e-6, 1e6)
+            moved = torch.abs(torch.log(rho_desc / rho)) > log_ratio
+            descend = can & moved
+            d_count = d_count + descend.to(torch.int32)
+            rho_new = torch.where(descend, rho_desc, rho)
+            if (it + 1) == rescue_chunk:
+                rescue = (~converged) & (rho <= rho_accept_max)
+            else:
+                rescue = torch.zeros_like(converged)
+            rho_new = torch.where(rescue, 0.1, rho_new)
+            d_count = torch.where(rescue, 0, d_count).to(torch.int32)
+            gate_desc = (~converged) & (pr <= 1.0) & (dr <= 1.0) & (~rho_ok)
+            rho_new = torch.where(gate_desc, torch.clamp(rho * 0.1, min=1e-4), rho_new)
+            flags = torch.stack([(descend | rescue | gate_desc).any(), (~converged).any()])
         # one host read per chunk: refactor? and does any scenario go on?
-        flags = torch.stack([(descend | rescue | gate_desc).any(), (~converged).any()])
-        do_refactor, any_open = (bool(v) for v in flags.tolist())
+        with span("mpc.solve.read.flags"):
+            count("host_reads.flags")
+            do_refactor, any_open = (bool(v) for v in flags.tolist())
         if do_refactor:
             Minv = _factorize(setup, rho_new)
         rho = rho_new
         it += 1
         keep_going = any_open and it < n_chunks
 
-    if polish and return_polished:
-        x = torch.where(pol_ok[:, None], x_pol_buf, x)
+    with span("mpc.solve.finish"):
+        if polish and return_polished:
+            x = torch.where(pol_ok[:, None], x_pol_buf, x)
 
-    x_out = s.d * x
-    y_out = s.e * y / s.c[:, None]
-    z_out = z / s.e
-    ax = torch.cat([
-        torch.einsum("bnfr,bnr->bnf", C_raw, x_out.reshape(B, nb, 3)).reshape(B, m_fr),
-        box_diag_raw * x_out,
-    ], dim=-1)
-    viol_ret = torch.amax(torch.clamp(torch.maximum(qp.l - ax, ax - qp.u), min=0.0), dim=-1)
-    use_pol_point = pol_ok if (polish and return_polished) else torch.zeros_like(pol_ok)
-    rp = torch.where(use_pol_point, viol_ret, torch.amax(torch.abs(ax - z_out), dim=-1))
-    px = _bmv(qp.p_dense, x_out)
-    aty = (torch.einsum("bnfr,bnf->bnr", C_raw, y_out[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
-           + box_diag_raw * y_out[:, m_fr:])
-    rd = torch.amax(torch.abs(px + qp.q + aty), dim=-1)
-    iters = torch.where(conv_iter < 0, it * check_every, conv_iter).to(torch.int32)
+        x_out = s.d * x
+        y_out = s.e * y / s.c[:, None]
+        z_out = z / s.e
+        ax = torch.cat([
+            torch.einsum("bnfr,bnr->bnf", C_raw, x_out.reshape(B, nb, 3)).reshape(B, m_fr),
+            box_diag_raw * x_out,
+        ], dim=-1)
+        viol_ret = torch.amax(torch.clamp(torch.maximum(qp.l - ax, ax - qp.u), min=0.0), dim=-1)
+        use_pol_point = pol_ok if (polish and return_polished) else torch.zeros_like(pol_ok)
+        rp = torch.where(use_pol_point, viol_ret, torch.amax(torch.abs(ax - z_out), dim=-1))
+        px = _bmv(qp.p_dense, x_out)
+        aty = (torch.einsum("bnfr,bnf->bnr", C_raw,
+                            y_out[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
+               + box_diag_raw * y_out[:, m_fr:])
+        rd = torch.amax(torch.abs(px + qp.q + aty), dim=-1)
+        iters = torch.where(conv_iter < 0, it * check_every, conv_iter).to(torch.int32)
     return AdmmSolution(
         x=x_out, y=y_out, prim_res=rp, dual_res=rd, iters=iters,
         state=AdmmState(x=x_out, z=z_out, y=y_out, rho=rho),

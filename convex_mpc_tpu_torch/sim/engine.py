@@ -12,6 +12,11 @@ the ``vmap``-of-``scan`` layout (``CycleLog.ticks.*`` is
 legacy fixed-segment solver, on the condensed QP or on the full form
 (``formulation="full"``, ``mpc/qp.py``).
 
+``mpc_cycle_batch`` names its stages in a ``torch.profiler`` trace
+(``mpc.cycle``, ``mpc.update``, ``mpc.solve``, ``mpc.apply`` and their
+children, ``utils.profiling.span``) and counts its cycles
+(``utils.profiling.count``); outside the profiler the spans record nothing.
+
 The CUDA kernels run when the tensors are on a CUDA device and their plain
 versions when they are on the CPU; there is no other switch.
 """
@@ -37,6 +42,7 @@ from convex_mpc_tpu_torch.ops.rotations import quat_to_rpy, yaw_unwrap_step
 from convex_mpc_tpu_torch.sim import physics as P
 from convex_mpc_tpu_torch.sim import tick_fused
 from convex_mpc_tpu_torch.utils.interop import tree_leaves, tree_map, tree_unflatten
+from convex_mpc_tpu_torch.utils.profiling import count, span
 
 
 class CommandSchedule(NamedTuple):
@@ -245,16 +251,20 @@ def cycle_update(dyn, gait, sched, state, qd, n, mpc_dt, r_value, mu_mpc, fz_min
                  brake_accel=0.0, brake_alpha=0.0):
     """Batched "update" stage: command lookup + observation + reference
     generation + condensed QP assembly."""
-    cmd = lookup_command(sched, state.t)
-    obs, yaw_cont, yaw_prev = observe(dyn, state.plant, state.yaw_cont, state.yaw_prev,
-                                      state.vel_filt)
-    traj, refgen = R.generate(state.refgen, gait, obs, cmd, state.t, mpc_dt, n,
-                              brake_accel=brake_accel, brake_alpha=brake_alpha)
-    p0 = traj.x0[:, 0:3]
-    x0_s = torch.cat([torch.zeros_like(p0), traj.x0[:, 3:]], dim=-1)
-    x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] + (-p0[:, None, :]), traj.x_ref[:, :, 3:]], dim=-1)
-    data, _ = condensed.build_condensed_structured(
-        traj.dyn, x0_s, x_ref_s, traj.contact, qd, r_value, mu_mpc, fz_min)
+    with span("mpc.update.observe"):
+        cmd = lookup_command(sched, state.t)
+        obs, yaw_cont, yaw_prev = observe(dyn, state.plant, state.yaw_cont, state.yaw_prev,
+                                          state.vel_filt)
+    with span("mpc.update.reference"):
+        traj, refgen = R.generate(state.refgen, gait, obs, cmd, state.t, mpc_dt, n,
+                                  brake_accel=brake_accel, brake_alpha=brake_alpha)
+    with span("mpc.update.condense"):
+        p0 = traj.x0[:, 0:3]
+        x0_s = torch.cat([torch.zeros_like(p0), traj.x0[:, 3:]], dim=-1)
+        x_ref_s = torch.cat([traj.x_ref[:, :, 0:3] + (-p0[:, None, :]), traj.x_ref[:, :, 3:]],
+                            dim=-1)
+        data, _ = condensed.build_condensed_structured(
+            traj.dyn, x0_s, x_ref_s, traj.contact, qd, r_value, mu_mpc, fz_min)
     return data, traj, refgen, cmd, yaw_cont, yaw_prev
 
 
@@ -271,22 +281,24 @@ def cycle_apply(dyn, gait, contact, state, sol, traj_b, refgen_b, cmd_b, yc_b, y
     """
     u0_b = sol.x[:, 0:12].reshape(-1, 4, 3)
     ticks_fn = tick_fused.run_ticks_fused if use_fused_ticks else _run_ticks
-    (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = ticks_fn(
-        dyn, gait, contact, cmd_b, traj_b, u0_b, state.plant, state.leg, yc_b, yp_b,
-        state.vel_filt, state.t, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
-    )
-    # carry the adapted rho only out of cycles that converged before the cap
-    rho_carry = torch.where(
-        sol.iters < solver_iters, torch.clamp(sol.state.rho, 1e-5, 0.1),
-        torch.full_like(sol.state.rho, 0.1),
-    )
-    new_state = EngineState(
-        plant=plant, leg=leg_state, refgen=refgen_b,
-        solver=sol.state._replace(rho=rho_carry), yaw_cont=yaw_cont, yaw_prev=yaw_prev,
-        u0=u0_b, t=t, vel_filt=vel_filt,
-    )
-    log = CycleLog(ticks=ticks, solver_iters=sol.iters, prim_res=sol.prim_res,
-                   dual_res=sol.dual_res)
+    with span("mpc.apply.ticks"):
+        (plant, leg_state, yaw_cont, yaw_prev, vel_filt, t), ticks = ticks_fn(
+            dyn, gait, contact, cmd_b, traj_b, u0_b, state.plant, state.leg, yc_b, yp_b,
+            state.vel_filt, state.t, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
+        )
+    with span("mpc.apply.carry"):
+        # carry the adapted rho only out of cycles that converged before the cap
+        rho_carry = torch.where(
+            sol.iters < solver_iters, torch.clamp(sol.state.rho, 1e-5, 0.1),
+            torch.full_like(sol.state.rho, 0.1),
+        )
+        new_state = EngineState(
+            plant=plant, leg=leg_state, refgen=refgen_b,
+            solver=sol.state._replace(rho=rho_carry), yaw_cont=yaw_cont, yaw_prev=yaw_prev,
+            u0=u0_b, t=t, vel_filt=vel_filt,
+        )
+        log = CycleLog(ticks=ticks, solver_iters=sol.iters, prim_res=sol.prim_res,
+                       dual_res=sol.dual_res)
     return new_state, log
 
 
@@ -334,29 +346,35 @@ def mpc_cycle_batch(
     axis. ``use_fused_ticks`` as in :func:`cycle_apply`. ``profile``, when a
     dict, accumulates the seconds of the update, solve and apply stages under
     those keys (each stage then ends in a device synchronization; the apply
-    stage covers the fused window too).
+    stage covers the fused window too). The stages' spans
+    (``utils.profiling.span``) never synchronize.
     """
-    dev = state.plant.q.device
-    qd = const(("q_diag", tuple(float(v) for v in q_diag)), dev,
-               lambda d: torch.as_tensor(q_diag, dtype=F32, device=d))
-    t_mark = _stage_mark(profile, None, None, dev)
-    data_b, traj_b, refgen_b, cmd_b, yc_b, yp_b = cycle_update(
-        dyn, gait, sched, state, qd, n, mpc_dt, r_value, mu_mpc, fz_min,
-        brake_accel=brake_accel, brake_alpha=brake_alpha,
-    )
-    t_mark = _stage_mark(profile, "update", t_mark, dev)
-    sol = admm.solve_adaptive(
-        data_b, state.solver, max_iter=solver_iters, check_every=check_every,
-        box_tail=n * 12, stall_tol=stall_tol, polish=polish, nu=condensed.NU,
-        return_polished=return_polished,
-    )
-    t_mark = _stage_mark(profile, "solve", t_mark, dev)
-    out = cycle_apply(
-        dyn, gait, contact, state, sol, traj_b, refgen_b, cmd_b, yc_b, yp_b,
-        solver_iters, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
-        use_fused_ticks=use_fused_ticks,
-    )
-    _stage_mark(profile, "apply", t_mark, dev)
+    count("cycles")
+    with span("mpc.cycle"):
+        dev = state.plant.q.device
+        qd = const(("q_diag", tuple(float(v) for v in q_diag)), dev,
+                   lambda d: torch.as_tensor(q_diag, dtype=F32, device=d))
+        t_mark = _stage_mark(profile, None, None, dev)
+        with span("mpc.update"):
+            data_b, traj_b, refgen_b, cmd_b, yc_b, yp_b = cycle_update(
+                dyn, gait, sched, state, qd, n, mpc_dt, r_value, mu_mpc, fz_min,
+                brake_accel=brake_accel, brake_alpha=brake_alpha,
+            )
+        t_mark = _stage_mark(profile, "update", t_mark, dev)
+        with span("mpc.solve"):
+            sol = admm.solve_adaptive(
+                data_b, state.solver, max_iter=solver_iters, check_every=check_every,
+                box_tail=n * 12, stall_tol=stall_tol, polish=polish, nu=condensed.NU,
+                return_polished=return_polished,
+            )
+        t_mark = _stage_mark(profile, "solve", t_mark, dev)
+        with span("mpc.apply"):
+            out = cycle_apply(
+                dyn, gait, contact, state, sol, traj_b, refgen_b, cmd_b, yc_b, yp_b,
+                solver_iters, steps_per_mpc, tau_max, sim_dt, vel_filter_hz,
+                use_fused_ticks=use_fused_ticks,
+            )
+        _stage_mark(profile, "apply", t_mark, dev)
     return out
 
 

@@ -9,7 +9,11 @@ Port of ``convex_mpc_tpu/utils/profiling.py``:
   first call excluded, best-of-k windows against host interference);
 - :class:`SolveStats` accumulates per-cycle solver iteration / residual
   counters from engine logs (``CycleLog``);
-- :func:`device_busy_ms` is the union of the device intervals in a trace.
+- :func:`device_busy_ms` is the union of the device intervals in a trace;
+- :func:`span` names a stretch of the host's work in a ``torch.profiler``
+  trace, and :func:`count` / :func:`counts` / :func:`reset_counts` keep the
+  production cycle's counts of its work (``mpc_cycle_batch`` and what it
+  calls: cycles, KKT factorizations, polish attempts and solves, host reads).
 """
 
 from __future__ import annotations
@@ -39,6 +43,44 @@ def trace(log_dir):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+_NULL_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A context naming the enclosed host work ``name`` in a ``torch.profiler``
+    trace; the span that encloses it on the host thread is its parent.
+
+    With no profiler running it returns one shared null context and records
+    nothing. Under the profiler it records a host-only event (a plain
+    ``cpu_op``, not a user annotation: ``record_function``'s annotations are
+    mirrored onto the device's track, where they would read as device
+    work), on the clock the device events use. It never synchronizes.
+    """
+    if not _profiler_enabled():
+        return _NULL_SPAN
+    return _RecordFunctionFast(name)
+
+
+_COUNTS: dict[str, int] = {}
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the counter ``name`` (a plain int, always on)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + k
+
+
+def counts() -> dict[str, int]:
+    """A copy of the counters."""
+    return dict(_COUNTS)
+
+
+def reset_counts() -> None:
+    """Set every counter back to zero."""
+    _COUNTS.clear()
 
 
 def device_busy_ms(prof) -> float:

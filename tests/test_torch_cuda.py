@@ -42,7 +42,10 @@ The horizon-24 production cycle and the full-form legacy cycle at B = 8
 applied force. A CUDA
 state round-trips ``utils.checkpoint`` bitwise (and so does its next cycle),
 and ``utils.profiling.time_fn`` of a kernel-2 chunk is within 20% of its
-CUDA-event time.
+CUDA-event time. A profiled fused cycle at B = 64 names its stages with
+host-only spans: no device event carries an ``mpc.`` name, the benchmark's
+trace finds no device work without a launch, and the KKT factorizations
+and polish solves counted add up to the kernel 1 launches.
 """
 
 from __future__ import annotations
@@ -398,3 +401,33 @@ def test_time_fn_matches_cuda_ms():
     t_fn = profiling.time_fn(chunk, reps=10) * 1e3
     t_ev = cuda_ms(chunk)
     assert abs(t_fn - t_ev) <= 0.2 * t_ev, (t_fn, t_ev)
+
+
+def test_profiled_cycle_spans_are_host_only():
+    _need_cuda()
+    from benchmark.trace import Trace
+
+    from convex_mpc_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    dyn, gait, contact, sched, state = start_batch(64, dev)
+    kw = TCFG.engine_kwargs_batched(TCFG.DEFAULT_CONFIG)
+    kw["use_fused_ticks"] = True
+    state, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)  # builds, warms
+    torch.cuda.synchronize()
+    profiling.reset_counts()
+    before = TCK.spd_inverse.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    named = [e for e in events if e.name().startswith("mpc.")]
+    assert {e.name() for e in named} >= {"mpc.cycle", "mpc.update", "mpc.solve", "mpc.apply",
+                                         "mpc.solve.chunk", "mpc.solve.read.flags"}
+    assert all(e.device_type() != torch.autograd.DeviceType.CUDA for e in named)
+    assert not any(e.is_user_annotation() for e in named)
+    assert Trace(events, 1, 1.0).unmatched_device == 0
+    c = profiling.counts()
+    assert c["cycles"] == 1
+    assert c["kkt_factorizations"] + c["polish_solves"] == TCK.spd_inverse.launches - before
