@@ -983,20 +983,31 @@ def start_batch(B: int, dev, n: int = HORIZON, x_spread: float = 0.02):
     return dyn, gait_b, contact_b, sched_b, state_b
 
 
-def attractor_kkt(dev, rho: float = 1e-4, horizon: int = HORIZON) -> torch.Tensor:
-    """The solver's KKT matrices at ``rho`` (default 1e-4, the attractor
-    region) for the first QP batch of the production cycle at ``horizon``
-    (n = 12 x horizon; mpc_dt = gait period / horizon, as ``horizons_path``)."""
+def first_kkt_setup(dev, horizon: int = HORIZON, B: int = B_MAIN):
+    """The solver's ``KktSetup`` (the rho-independent parts of its KKT
+    matrices) for the first QP batch of B scenarios of the production cycle
+    at ``horizon`` (n = 12 x horizon; mpc_dt = gait period / horizon, as
+    ``horizons_path``), at ``admm.kkt_at_rho``'s settings."""
     from convex_mpc_tpu_torch.mpc import admm
     from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
 
     kw = engine_kwargs_batched(EngineConfig(mpc=MpcConfig(horizon=horizon)))
-    dyn, gait_b, _, sched_b, state_b = start_batch(B_MAIN, dev, horizon)
+    dyn, gait_b, _, sched_b, state_b = start_batch(B, dev, horizon)
     qd = torch.as_tensor(kw["q_diag"], dtype=torch.float32, device=dev)
     data = E.cycle_update(dyn, gait_b, sched_b, state_b, qd, kw["n"], kw["mpc_dt"],
                           kw["r_value"], kw["mu_mpc"], kw["fz_min"])[0]
-    return admm.kkt_at_rho(data, torch.full((B_MAIN,), rho, device=dev)).contiguous()
+    return admm.kkt_setup(data.p_dense, data.q, data.C, torch.ones_like(data.q), data.l,
+                          data.u, sigma=1e-6, eq_scale=1e3, scaling_iters=5)
+
+
+def attractor_kkt(dev, rho: float = 1e-4, horizon: int = HORIZON) -> torch.Tensor:
+    """The solver's KKT matrices at ``rho`` (default 1e-4, the attractor
+    region) for the first QP batch of the production cycle at ``horizon``."""
+    from convex_mpc_tpu_torch.mpc import admm
+
+    setup = first_kkt_setup(dev, horizon)
+    return admm.kkt_matrix(setup, torch.full((B_MAIN,), rho, device=dev)).contiguous()
 
 
 def healthy(state) -> bool:

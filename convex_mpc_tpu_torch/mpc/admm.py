@@ -7,16 +7,17 @@ Port of ``convex_mpc_tpu/mpc/admm.py``:
   equilibration, the KKT inverse by ``spd_inverse``, 25-iteration chunks of
   the structured ADMM kernel, per-scenario residual / stall / small-force
   accepts, the bounded rho descent with rescue and gate steps,
-  refactor-on-demand, and the certified active-set polish ladder, with the
-  optional snap-first proposal that sends only the scenarios it cannot
-  certify through a compacted ladder (``snap_first``) and the ``debug``
-  prints. The JAX ``lax.while_loop`` / ``lax.cond`` predicates are
-  batch-global, so here they are host reads: whether to polish and whether
-  to refactor/continue are read once per chunk, the ladder's round
-  condition once per round, and the snap failures' count once per polish;
-  each such read has a ``mpc.solve.read.<site>`` span and a
-  ``host_reads.<site>`` counter (``utils/profiling.py``), beside the spans of
-  the solve's phases and the counts of KKT factorizations and polish solves;
+  refactor-on-demand of the scenarios whose rho moved (``_refactor``), and
+  the certified active-set polish ladder, with the optional snap-first
+  proposal that sends only the scenarios it cannot certify through a
+  compacted ladder (``snap_first``) and the ``debug`` prints. The JAX
+  ``lax.while_loop`` / ``lax.cond`` predicates are batch-global, so here
+  they are host reads: whether to polish, and how many rho moved and whether
+  to continue, are read once per chunk, the ladder's round condition once
+  per round, and the snap failures' count once per polish; each such read
+  has a ``mpc.solve.read.<site>`` span and a ``host_reads.<site>`` counter
+  (``utils/profiling.py``), beside the spans of the solve's phases and the
+  counts of KKT factorizations, the rows they invert, and polish solves;
 - the legacy fixed-segment ``solve`` / ``solve_batch`` on a dense
   ``QpData``: Ruiz scaling, ``SEGMENTS`` equal iteration segments with a
   Cholesky refactorization and a per-scenario rho update between them, the
@@ -346,15 +347,37 @@ def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3
                                 scaling_iters), rho)
 
 
+def _inverse(M: torch.Tensor) -> torch.Tensor:
+    if M.shape[-1] % 32 == 0:
+        return spd_inverse(M)
+    # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
+    # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
+    return spd_inverse_plain(M)
+
+
 def _factorize(setup: KktSetup, rho) -> torch.Tensor:
+    """M(rho)^-1 of every scenario."""
     count("kkt_factorizations")
+    count("kkt_rows", rho.shape[0])
     with span("mpc.solve.factor"):
-        M = kkt_matrix(setup, rho)
-        if M.shape[-1] % 32 == 0:
-            return spd_inverse(M)
-        # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
-        # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
-        return spd_inverse_plain(M)
+        return _inverse(kkt_matrix(setup, rho))
+
+
+def _refactor(setup: KktSetup, rho, Minv: torch.Tensor, changed, k: int) -> torch.Tensor:
+    """``Minv`` at the new ``rho``, where the ``k`` scenarios flagged in
+    ``changed`` moved their rho: only their M(rho) is built and inverted, and
+    written into ``Minv`` in place. M and its inverse are per scenario, so
+    every row equals the whole batch's ``_factorize``; with every row
+    changed, that is what runs."""
+    if k == rho.shape[0]:
+        return _factorize(setup, rho)
+    count("kkt_factorizations")
+    count("kkt_rows", k)
+    with span("mpc.solve.factor"):
+        idx = torch.nonzero_static(changed, size=k)[:, 0]  # k is known: no wait for the size
+        sub = setup._replace(P_mat=setup.P_mat[idx], K=setup.K[idx],
+                             K_box_diag=setup.K_box_diag[idx])
+        return Minv.index_copy_(0, idx, _inverse(kkt_matrix(sub, rho[idx])))
 
 
 # ---------------------------------------------------------------------------
@@ -587,16 +610,19 @@ def solve_adaptive(
             d_count = torch.where(rescue, 0, d_count).to(torch.int32)
             gate_desc = (~converged) & (pr <= 1.0) & (dr <= 1.0) & (~rho_ok)
             rho_new = torch.where(gate_desc, torch.clamp(rho * 0.1, min=1e-4), rho_new)
-            flags = torch.stack([(descend | rescue | gate_desc).any(), (~converged).any()])
-        # one host read per chunk: refactor? and does any scenario go on?
+            # each of the three moves rho; every other scenario keeps its rho
+            # bit for bit, so its row of Minv stands
+            changed = descend | rescue | gate_desc
+            flags = torch.stack([changed.sum(), (~converged).any().to(torch.int64)])
+        # one host read per chunk: how many rho moved? and does any scenario go on?
         with span("mpc.solve.read.flags"):
             count("host_reads.flags")
-            do_refactor, any_open = (bool(v) for v in flags.tolist())
-        if do_refactor:
-            Minv = _factorize(setup, rho_new)
+            k, any_open = flags.tolist()
+        if k > 0:
+            Minv = _refactor(setup, rho_new, Minv, changed, k)
         rho = rho_new
         it += 1
-        keep_going = any_open and it < n_chunks
+        keep_going = bool(any_open) and it < n_chunks
 
     with span("mpc.solve.finish"):
         if polish and return_polished:

@@ -45,7 +45,12 @@ and ``utils.profiling.time_fn`` of a kernel-2 chunk is within 20% of its
 CUDA-event time. A profiled fused cycle at B = 64 names its stages with
 host-only spans: no device event carries an ``mpc.`` name, the benchmark's
 trace finds no device work without a launch, and the KKT factorizations
-and polish solves counted add up to the kernel 1 launches.
+and polish solves counted add up to the kernel 1 launches. The solver's
+refactor of only the scenarios whose rho moved (``admm._refactor``: 37 of
+200 on the production KKT at horizons 32, 16 and 10, one of them not SPD)
+equals the whole batch's factorization bit for bit (NaN in that row alone),
+writes ``Minv`` in place, launches kernel 1 once and never waits on the
+card.
 """
 
 from __future__ import annotations
@@ -60,10 +65,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     MAX_FLIPS, attractor_kkt, dense_f64_errors, dense_problem, dense_problem_at,
-    fixed_kwargs, full_form_problem, hetero_battery, random_dense_problem, rounding_flips,
+    first_kkt_setup, fixed_kwargs, full_form_problem, hetero_battery, random_dense_problem, rounding_flips,
     spd_batch, spd_kkt_errors, spd_nonspd, start_batch, structured_problem, tick_battery,
     window_misses)
 
+from convex_mpc_tpu_torch.mpc import admm as TA  # noqa: E402
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
 from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
 from convex_mpc_tpu_torch.sim import engine as TE  # noqa: E402
@@ -431,3 +437,37 @@ def test_profiled_cycle_spans_are_host_only():
     c = profiling.counts()
     assert c["cycles"] == 1
     assert c["kkt_factorizations"] + c["polish_solves"] == TCK.spd_inverse.launches - before
+
+
+@pytest.mark.parametrize("horizon", [32, 16, 10])
+def test_subset_refactor_bitwise_on_card(horizon):
+    """37 of 200 scenarios move their rho (one to a non-SPD M): the subset
+    refactor through kernel 1 (n = 384, 192; horizon 10's nz = 120 through
+    the plain branch) equals the whole-batch factorization bit for bit, in
+    place, with no host synchronisation."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    B, k = 200, 37
+    setup = first_kkt_setup(dev, horizon, B)
+    g = torch.Generator().manual_seed(17)
+    rho = torch.logspace(-4, -1, B)[torch.randperm(B, generator=g)].to(dev)
+    rows = torch.randperm(B, generator=g)[:k].to(dev)
+    changed = torch.zeros(B, dtype=torch.bool, device=dev)
+    changed[rows] = True
+    rho_new = torch.where(changed, rho * 0.1, rho)
+    rho_new[rows[0]] = -1e3  # M(rho) indefinite: NaN in this row alone
+    Minv = TA._factorize(setup, rho)
+    whole = TA._factorize(setup, rho_new)
+    torch.cuda.synchronize()
+    before = TCK.spd_inverse.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = TA._refactor(setup, rho_new, Minv, changed, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out is Minv
+    assert TCK.spd_inverse.launches == before + (1 if 12 * horizon % 32 == 0 else 0)
+    assert torch.isnan(out[rows[0]]).all()
+    assert torch.isfinite(out[torch.arange(B, device=dev) != rows[0]]).all()
+    torch.testing.assert_close(out, whole, rtol=0, atol=0, equal_nan=True)

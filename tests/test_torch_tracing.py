@@ -157,6 +157,7 @@ def test_counts_match_the_solves_own_calls(cycles):
         assert c.get("host_reads.want_polish", 0) == chunks - (chunks == cap)
         assert c["polish_attempts"] >= 1 and c["kkt_factorizations"] >= 1
         assert c["kkt_factorizations"] + c["polish_solves"] == run["spd"]
+        assert 2 <= c["kkt_rows"] <= 2 * c["kkt_factorizations"]  # B = 2: all, then those moved
         assert c.get("host_reads.ladder", 0) <= c["polish_solves"]
 
 
