@@ -67,8 +67,8 @@ Phases (any failure exits non-zero and prints no result line):
 6. horizons 10, 24 and 32: ``mpc_cycle_batch`` at B = 512 with
    ``mpc_dt`` = gait period / horizon, 4 settle cycles and a 4-cycle
    window with the counters set to 0 just before it (both solve kernels
-   must launch; at horizon 10, nz = 120, the KKT inverse takes JAX's own
-   non-kernel branch and only the structured chunk must), then one B = 8
+   must launch; at horizon 10, nz = 120, kernel 1 on its padded grid of
+   128), then one B = 8
    cycle on the card and on the CPU within 2.0 N;
 7. the full QP form: ``mpc_cycle_fixed(formulation="full",
    solver_iters=150)`` at B = 512 at horizons 16, 24 and 32 for a 4-cycle
@@ -392,14 +392,16 @@ def spd_kkt_errors(kkt: torch.Tensor) -> dict:
 
 
 # kernel 1's sizes on the production path: (n, horizon, the window whose
-# launches its row of the kernel table counts)
-SPD_SIZES = ((192, 16, "main"), (288, 24, "horizon24"), (384, 32, "horizon32"))
+# launches its row of the kernel table counts); n = 120 on its padded grid
+SPD_SIZES = ((192, 16, "main"), (120, 10, "horizon10"), (288, 24, "horizon24"),
+             (384, 32, "horizon32"))
 
 
 def check_spd_inverse(dev) -> list:
     """Kernel 1 at each of ``SPD_SIZES``: the random batch
-    (``check_spd_random``), the times (``spd_times``) and, at horizons 16
-    and 32 (n = 192 one CTA, 384 a cluster of 2), the solver's KKT at
+    (``check_spd_random``), the times (``spd_times``) and, at horizons 10, 16
+    and 32 (n = 120 on its padded grid of 128 and 192 in one CTA, 384 a
+    cluster of 2), the solver's KKT at
     attractor-region rho 1e-4 and at the rho the solver and its warm carry
     reach below it (1e-5, 1e-6): the kernel finite, its error and residual
     against the f64 inverse at most twice the plain version's. One row of
@@ -409,7 +411,7 @@ def check_spd_inverse(dev) -> list:
     rows = []
     for n, horizon, run in SPD_SIZES:
         err = check_spd_random(n, dev)
-        for rho in ((1e-4, 1e-5, 1e-6) if horizon in (16, 32) else ()):
+        for rho in ((1e-4, 1e-5, 1e-6) if horizon in (10, 16, 32) else ()):
             k = spd_kkt_errors(attractor_kkt(dev, rho, horizon))
             print(f"spd_inverse KKT horizon {horizon} (n={n}) rho={rho:g} B={B_MAIN}: "
                   f"|k-f64| = {k['e_kernel'] / k['kscale']:.2e} x scale vs plain "
@@ -1210,10 +1212,10 @@ def fixed_path(dev) -> dict:
 
 def horizons_path(dev) -> dict:
     """Phase 6: the production cycle at horizons 10, 24 and 32 (nz = 120, 288,
-    384: at nz = 120 the KKT inverse takes JAX's own non-kernel branch, nz %
-    32 != 0, and the structured chunk its generic instance; at 288 and 384
-    ``spd_inverse`` with its working set on chip and in device memory, the
-    chunk in clusters of 2 and 3 CTAs), mpc_dt = gait period / horizon.
+    384: at nz = 120 ``spd_inverse`` on its padded grid of 128 and the
+    structured chunk its generic instance; at 288 ``spd_inverse`` in one
+    CTA, at 384 in a cluster of 2, the chunk in clusters of 2 and 3 CTAs),
+    mpc_dt = gait period / horizon.
     Returns each horizon's window, keyed ``horizon<n>``."""
     from convex_mpc_tpu_torch.sim import engine as E
     from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
@@ -1231,9 +1233,7 @@ def horizons_path(dev) -> dict:
               f"B={B_MAIN} in {time.perf_counter() - t0:.2f} s")
         _, res = drive(f"horizon {n} path", E.mpc_cycle_batch, args, state, H_WINDOW, kw,
                        profile={})
-        need = ("spd_inverse", "admm_iterations_structured") if 12 * n % 32 == 0 else (
-            "admm_iterations_structured",)
-        if min(res["launches"][k] for k in need) <= 0:
+        if min(res["launches"][k] for k in ("spd_inverse", "admm_iterations_structured")) <= 0:
             fail(f"horizon {n}: a solve kernel was never launched: {res['launches']}")
         card_vs_cpu(f"horizon {n} path", E.mpc_cycle_batch, dyn,
                     (gait_b, contact_b, sched_b, state), 1, kw)

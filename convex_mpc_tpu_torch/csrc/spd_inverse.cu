@@ -5,7 +5,20 @@
 // (_spd_inverse_kernel, _chol_unrolled, _tri_inv_neumann): the KKT
 // factorization of the structured ADMM solver and the polish's reduced solve
 // (n = 12 x horizon: 192 on the main path at horizon 16, 288 and 384 at
-// horizons 24 and 32; B = 512).
+// horizons 24 and 32, 120 at horizon 10; B = 512 to 10,240).
+//
+// Any order: a matrix of order na runs on the 16-row panel grid
+// n = 16 ceil(na / 16) (n = 128 at na = 120). The load fills the packed
+// triangle with A where i, j < na and with the identity in the pad rows and
+// columns; the phases below run unchanged at n; the store writes the
+// na x na block alone. diag(A, I)^-1 = diag(A^-1, I), and every product
+// that couples A's rows with the pad's is of exact zeros, so the block is
+// what an order-na schedule would give; the pad's pivots are 1, so a
+// matrix that is not SPD still turns wholly NaN. The pad costs n^3 - na^3
+// operations a matrix (17.6% of the work at na = 120); phase 3 skips the
+// tiles of the pad and the pad's columns of V (exact zeros in A's rows).
+// An order that is no multiple of 4 (rows off the 16-byte grid, never a
+// port's n = 12 x horizon) runs the device-memory scratch instance.
 //
 // What bounds it on this card: operations. The least work is n^3 f32 flops
 // per matrix (LAPACK's count: Cholesky n^3/3, triangular inverse n^3/3,
@@ -134,6 +147,39 @@ __device__ __forceinline__ void zero4x4(float (&acc)[4][4]) {
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+}
+
+// elements (i, j..j+3), j % 4 == 0, of A (order na, row stride na) padded
+// with the identity: A's where i, j < na. Where na % 4 == 0 (kAligned: the
+// caller's promise) every row starts on a 16-byte boundary and a group of 4
+// columns lies wholly inside A or wholly in the pad.
+template <bool kAligned>
+__device__ __forceinline__ float4 ld4_padded(const float* Ab, int na, int i, int j) {
+  if (kAligned || (na & 3) == 0) {
+    if (i < na && j < na) return ld4(Ab + (size_t)i * na + j);
+    return make_float4(i == j, i == j + 1, i == j + 2, i == j + 3);
+  }
+  float x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    x[c] = (i < na && j + c < na) ? Ab[(size_t)i * na + j + c] : (i == j + c ? 1.0f : 0.0f);
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// v into elements (i, j..j+3), j % 4 == 0, of out (order na), those with
+// i, j + c < na (kAligned: na % 4 == 0)
+template <bool kAligned>
+__device__ __forceinline__ void st4_clipped(float* Ob, int na, int i, int j, float4 v) {
+  if (i >= na || j >= na) return;
+  float* p = Ob + (size_t)i * na + j;
+  if (kAligned || (na & 3) == 0) {
+    st4(p, v);
+    return;
+  }
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (j + c < na) p[c] = x[c];
 }
 
 __device__ __forceinline__ void unpack(const float4 v, float (&x)[4]) {
@@ -292,14 +338,18 @@ __device__ __forceinline__ void trailing_tile(Packed S, int c0, int t) {
   update_tile(S, S, c0, c0 + NB + 4 * ta, c0 + NB + 4 * tb);
 }
 
-// out[a][b] = sum_{k >= b0} V[a][k] V[b][k] for the tile at (a0, b0), a0 <= b0,
-// stored with its mirror straight to device memory
-template <class RA, class RB>
-__device__ __forceinline__ void vv_tile(RA ra, RB rb, int n, int a0, int b0, float* Ob) {
+// out[a][b] = sum_{b0 <= k < kend} V[a][k] V[b][k] for the tile at (a0, b0),
+// a0 <= b0, stored with its mirror straight to device memory (order na);
+// nothing for a tile of the pad (b0 >= na). V's columns from kend = 4
+// ceil(na / 4) on are the pad's: zero in the rows that are stored.
+template <bool kAligned, class RA, class RB>
+__device__ __forceinline__ void vv_tile(RA ra, RB rb, int kend, int na, int a0, int b0,
+                                        float* Ob) {
+  if (b0 >= na) return;
   float acc[4][4];
   zero4x4(acc);
 #pragma unroll 1
-  for (int k = b0; k < n; k += 4) {
+  for (int k = b0; k < kend; k += 4) {
     float va[4][4], vb[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -315,17 +365,20 @@ __device__ __forceinline__ void vv_tile(RA ra, RB rb, int n, int a0, int b0, flo
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    st4(Ob + (size_t)(a0 + r) * n + b0, make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
-    st4(Ob + (size_t)(b0 + r) * n + a0, make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]));
+    st4_clipped<kAligned>(Ob, na, a0 + r, b0,
+                          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    st4_clipped<kAligned>(Ob, na, b0 + r, a0,
+                          make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]));
   }
 }
 
-// kShared: S in dynamic shared memory; otherwise S is this block's
-// packed_floats(n) slice of `scratch`.
+// kShared: S in dynamic shared memory, and na % 4 == 0; otherwise S is this
+// block's packed_floats(n) slice of `scratch`, and na any order. A and out
+// are of order na <= n, the panel grid's order (the pad in the header).
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
-                   float* __restrict__ scratch, int n) {
+                   float* __restrict__ scratch, int na, int n) {
   extern __shared__ __align__(16) float smem[];
   float* S = kShared ? smem : scratch + (size_t)blockIdx.x * packed_floats(n);
   const Packed rows{S, n};
@@ -334,16 +387,40 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t base = (size_t)blockIdx.x * n * n;
+  const size_t base = (size_t)blockIdx.x * na * na;
   const float* Ab = A + base;
   float* Ob = out + base;
   const int n4 = n / 4;
 
-  // the packed upper triangle of A; unrolled so that several loads are in flight
+  // the packed upper triangle of A, unrolled so that several loads are in
+  // flight, then its pad. Without a pad, the plain 16-byte loads alone (a
+  // test per element cost 4% at n = 288 on an H100); with one and na % 4 ==
+  // 0, A's rows by 16-byte loads and the pad's columns (j >= na: rows
+  // i < na hold zeros there, rows i >= na the identity) by a loop of their
+  // own (16% faster than a test per element at na = 120).
+  if (na == n) {
 #pragma unroll 4
-  for (int e = tid; e < n * n4; e += kThreads) {
-    const int i = e / n4, j4 = e - i * n4;
-    if (j4 >= (i >> 2)) st4(S + rowoff(i, n) + 4 * j4, ld4(Ab + 4 * (size_t)e));
+    for (int e = tid; e < n * n4; e += kThreads) {
+      const int i = e / n4, j4 = e - i * n4;
+      if (j4 >= (i >> 2)) st4(S + rowoff(i, n) + 4 * j4, ld4(Ab + 4 * (size_t)e));
+    }
+  } else if (kShared) {
+    const int na4 = na / 4, pc = (n - na) / 4;
+#pragma unroll 4
+    for (int e = tid; e < na * na4; e += kThreads) {
+      const int i = e / na4, j4 = e - i * na4;
+      if (j4 >= (i >> 2)) st4(S + rowoff(i, n) + 4 * j4, ld4(Ab + 4 * (size_t)e));
+    }
+    for (int e = tid; e < n * pc; e += kThreads) {
+      const int i = e / pc, j = na + 4 * (e - i * pc);
+      if ((j >> 2) >= (i >> 2)) st4(S + rowoff(i, n) + j, ld4_padded<true>(Ab, na, i, j));
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < n * n4; e += kThreads) {
+      const int i = e / n4, j4 = e - i * n4;
+      if (j4 >= (i >> 2)) st4(S + rowoff(i, n) + 4 * j4, ld4_padded<false>(Ab, na, i, 4 * j4));
+    }
   }
   if (tid == 0) bad = 0;
   __syncthreads();
@@ -403,9 +480,13 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
   }
 
   if (bad) {
+    const int na4 = (na + 3) / 4;
     const float qnan = __int_as_float(0x7fc00000);
     const float4 q4 = make_float4(qnan, qnan, qnan, qnan);
-    for (int e = tid; e < n * n4; e += kThreads) st4(Ob + 4 * (size_t)e, q4);
+    for (int e = tid; e < na * na4; e += kThreads) {
+      const int i = e / na4;
+      st4_clipped<kShared>(Ob, na, i, 4 * (e - i * na4), q4);
+    }
     return;
   }
 
@@ -480,12 +561,13 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
   }
 
   // ---- 3. out = V V': out[a][b] = sum_{k >= max(a, b)} V[a][k] V[b][k] -----
-  const int T = n / 4;
-  const int ntiles = T * (T + 1) / 2;
+  // (the upper tiles of A's rows, the pad's come last in upper_tile order)
+  const int na4 = (na + 3) / 4;
+  const int ntiles = na4 * (na4 + 1) / 2;
   for (int t = tid; t < ntiles; t += kThreads) {
     int ta, tb;
     upper_tile(t, ta, tb);
-    vv_tile(rows, rows, n, 4 * ta, 4 * tb, Ob);
+    vv_tile<kShared>(rows, rows, 4 * na4, na, 4 * ta, 4 * tb, Ob);
   }
 }
 
@@ -493,11 +575,13 @@ spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
 
 constexpr int kClusterThreads = 512;
 
-// One matrix per cluster of 2 (blocks 2 b and 2 b + 1). The schedule is in
-// the header; the numbered comments follow it.
+// One matrix per cluster of 2 (blocks 2 b and 2 b + 1), of order na <= n,
+// the panel grid's order, na % 4 == 0. The schedule is in the header; the
+// numbered comments follow it.
 template <int NT>
 __global__ void __launch_bounds__(NT, 1)
-spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out, int n) {
+spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out, int na,
+                           int n) {
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) unsigned long long sbar[2];  // one per staging slot
   __shared__ int bad, peer_bad;
@@ -506,7 +590,7 @@ spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int P = n / NB, G = n / 4, n4 = n / 4;
   const int K = (P + 1 - r) / 2, Kp = (P + 1 - peer) / 2;  // panels here and in the peer
-  const size_t base = (size_t)(blockIdx.x >> 1) * n * n;
+  const size_t base = (size_t)(blockIdx.x >> 1) * na * na;
   const float* Ab = A + base;
   float* Ob = out + base;
   float* stage = smem + half_floats(n, 0);  // slot s: stage + 16 n s
@@ -529,11 +613,21 @@ spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out,
     st_async4(peer_stage + 4u * (16 * n * s + off), v, peer_bar0 + 8 * s);
   };
 
+  // this CTA's panels of A (and of its pad, as the one-CTA kernel's load)
+  if (na == n) {
 #pragma unroll 4
-  for (int e = tid; e < 16 * K * n4; e += NT) {
-    const int il = e / n4, j4 = e - il * n4;
-    const int i = 16 * (r + 2 * (il >> 4)) + (il & 15);
-    if (j4 >= (i >> 2)) st4(mine(i) + 4 * j4, ld4(Ab + (size_t)i * n + 4 * j4));
+    for (int e = tid; e < 16 * K * n4; e += NT) {
+      const int il = e / n4, j4 = e - il * n4;
+      const int i = 16 * (r + 2 * (il >> 4)) + (il & 15);
+      if (j4 >= (i >> 2)) st4(mine(i) + 4 * j4, ld4(Ab + (size_t)i * n + 4 * j4));
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < 16 * K * n4; e += NT) {
+      const int il = e / n4, j4 = e - il * n4;
+      const int i = 16 * (r + 2 * (il >> 4)) + (il & 15);
+      if (j4 >= (i >> 2)) st4(mine(i) + 4 * j4, ld4_padded<true>(Ab, na, i, 4 * j4));
+    }
   }
   if (tid == 0) {
     bar_init(bar0);
@@ -634,7 +728,7 @@ spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out,
     const float4 q4 = make_float4(qnan, qnan, qnan, qnan);
     for (int e = tid; e < 16 * K * n4; e += NT) {
       const int il = e / n4, j4 = e - il * n4;
-      st4(Ob + (size_t)(16 * (r + 2 * (il >> 4)) + (il & 15)) * n + 4 * j4, q4);
+      st4_clipped<true>(Ob, na, 16 * (r + 2 * (il >> 4)) + (il & 15), 4 * j4, q4);
     }
     return;  // the peer reads nothing of this CTA from here on
   }
@@ -714,11 +808,11 @@ spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out,
 
   // ---- 3. out = V V' --------------------------------------------------------
   cluster.sync();  // the peer's V is complete
-  const int gm = 4 * K, nt = gm * (gm + 1) / 2;
+  const int gm = 4 * K, nt = gm * (gm + 1) / 2, kend = (na + 3) & ~3;
   for (int t = tid; t < nt; t += NT) {
     int ta, tb;
     upper_tile(t, ta, tb);
-    vv_tile(mine, mine, n, 4 * grp(ta), 4 * grp(tb), Ob);
+    vv_tile<true>(mine, mine, kend, na, 4 * grp(ta), 4 * grp(tb), Ob);
   }
   // the tiles (row group here, row group of the peer's panel pb), the
   // panel's packed rows first copied into slot 0
@@ -732,18 +826,20 @@ spd_inverse_cluster_kernel(const float* __restrict__ A, float* __restrict__ out,
     __syncthreads();
     const Half panel{stage, n, peer, first};
     for (int t = tid; t < 4 * ra; t += NT)
-      vv_tile(mine, panel, n, 4 * grp(t % ra), 4 * (4 * pb + t / ra), Ob);
+      vv_tile<true>(mine, panel, kend, na, 4 * grp(t % ra), 4 * (4 * pb + t / ra), Ob);
   }
   cluster.sync();  // the peer has copied what it reads of this CTA
 }
 
-// The launch for n on the current device: smem dynamic shared bytes per CTA
-// (0 when S lives in the scratch), scratch floats per matrix (0 when S is on
+// The launch for grid order n (and orders that are multiples of 4 or not:
+// `aligned`) on the current device: smem dynamic shared bytes per CTA (0
+// when S lives in the scratch), scratch floats per matrix (0 when S is on
 // chip), resident (CTAs per SM for one CTA a matrix, clusters on the device
 // for a cluster; 0: the launch does not fit) and csize, the CTAs a matrix
 // (1 or 2).
 struct Shape {
   int dev, n;
+  bool aligned;
   size_t smem;
   long long scratch;
   int resident, csize;
@@ -755,12 +851,16 @@ struct Shape {
 // cluster_floats(n) fit a CTA beside the cluster kernel's; else in a
 // scratch buffer. Byte counts alone decide: a cluster shape that fits them
 // but of which no cluster is resident is refused at launch, not moved to
-// the scratch. Kept per (device, n), so a repeated launch makes none of
+// the scratch. An order that is no multiple of 4 (unaligned rows) runs the
+// scratch instance at every n: the on-chip instances take aligned rows
+// alone, since the unaligned loads and stores cost the one-CTA instance a
+// spilled register and 2-4% of its time at n = 192 and 288 on an H100.
+// Kept per (device, n, aligned), so a repeated launch makes none of
 // these host calls again; on a device's first query the one-CTA on-chip
 // instance is allowed all the dynamic shared memory a block may opt in to
 // (the occupancy follows the bytes each launch asks; resident_clusters
 // raises the cluster kernel's limit to its shape).
-cudaError_t shape_for(int n, Shape* out) {
+cudaError_t shape_for(int n, bool aligned, Shape* out) {
   static std::mutex mu;
   static std::vector<Shape> known;
   int dev = 0;
@@ -769,7 +869,7 @@ cudaError_t shape_for(int n, Shape* out) {
   std::lock_guard<std::mutex> lock(mu);
   bool dev_known = false;
   for (const Shape& s : known) {
-    if (s.dev == dev && s.n == n) {
+    if (s.dev == dev && s.n == n && s.aligned == aligned) {
       *out = s;
       return cudaSuccess;
     }
@@ -789,14 +889,14 @@ cudaError_t shape_for(int n, Shape* out) {
   auto cluster_kernel = spd_inverse_cluster_kernel<kClusterThreads>;
   cudaFuncAttributes fc;
   if ((err = cudaFuncGetAttributes(&fc, cluster_kernel)) != cudaSuccess) return err;
-  Shape s = {dev, n, 0, 0, 0, 1};
+  Shape s = {dev, n, aligned, 0, 0, 0, 1};
   const size_t bytes = (size_t)packed_floats(n) * sizeof(float);
   const size_t cbytes = (size_t)cluster_floats(n) * sizeof(float);
-  if (bytes <= room) {
+  if (aligned && bytes <= room) {
     s.smem = bytes;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.resident, spd_inverse_kernel<true>,
                                                         kThreads, bytes);
-  } else if (cbytes + fc.sharedSizeBytes <= (size_t)optin) {
+  } else if (aligned && cbytes + fc.sharedSizeBytes <= (size_t)optin) {
     s.smem = cbytes;
     s.csize = 2;
     cudaLaunchAttribute attr;
@@ -815,17 +915,22 @@ cudaError_t shape_for(int n, Shape* out) {
 
 }  // namespace
 
-// The launch spd_inverse_f32 makes for n on the current device: its dynamic
-// shared memory in bytes per CTA, the scratch floats it needs per matrix (0:
-// the working set is on chip, pass scratch = NULL), how many are resident
-// (CTAs per SM for one CTA a matrix, clusters on the device for a cluster)
-// and the CTAs a matrix (1, or 2 for a cluster). Returns a cudaError_t (0 on
-// success); cudaErrorInvalidValue unless n % 16 == 0.
+// The panel grid's order for a matrix of order n: n rounded up to a multiple
+// of 16 (the pad in the header).
+constexpr int grid_order(int n) { return (n + NB - 1) / NB * NB; }
+
+// The launch spd_inverse_f32 makes for n on the current device, at the
+// panel grid's order: its dynamic shared memory in bytes per CTA, the
+// scratch floats it needs per matrix (0: the working set is on chip, pass
+// scratch = NULL), how many are resident (CTAs per SM for one CTA a matrix,
+// clusters on the device for a cluster) and the CTAs a matrix (1, or 2 for
+// a cluster). Returns a cudaError_t (0 on success); cudaErrorInvalidValue
+// unless n > 0.
 extern "C" int spd_inverse_shape(int n, int* smem_bytes, long long* scratch_floats,
                                  int* resident, int* csize) {
-  if (n <= 0 || n % NB != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
   Shape s;
-  const cudaError_t err = shape_for(n, &s);
+  const cudaError_t err = shape_for(grid_order(n), n % 4 == 0, &s);
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = (int)s.smem;
   *scratch_floats = s.scratch;
@@ -835,15 +940,16 @@ extern "C" int spd_inverse_shape(int n, int* smem_bytes, long long* scratch_floa
 }
 
 // C entry point: A and out are (batch, n, n) contiguous f32 device arrays,
-// n % 16 == 0; scratch is NULL or a (batch, scratch_floats) f32 device buffer
+// any n > 0; scratch is NULL or a (batch, scratch_floats) f32 device buffer
 // as spd_inverse_shape says. Returns the cudaError_t of the launch (0 on
 // success); cudaErrorInvalidValue if scratch does not match the shape,
 // cudaErrorInvalidConfiguration if no CTA or no cluster fits.
 extern "C" int spd_inverse_f32(const float* A, float* out, float* scratch, int batch, int n,
                                cudaStream_t stream) {
-  if (n <= 0 || n % NB != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int ng = grid_order(n);
   Shape s;
-  cudaError_t err = shape_for(n, &s);
+  cudaError_t err = shape_for(ng, n % 4 == 0, &s);
   if (err != cudaSuccess) return (int)err;
   if (s.resident < 1) return (int)cudaErrorInvalidConfiguration;
   if ((s.scratch > 0) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
@@ -851,12 +957,12 @@ extern "C" int spd_inverse_f32(const float* A, float* out, float* scratch, int b
   if (s.csize == 2) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(batch, 2, kClusterThreads, s.smem, stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, spd_inverse_cluster_kernel<kClusterThreads>, A, out, n);
+    err = cudaLaunchKernelEx(&cfg, spd_inverse_cluster_kernel<kClusterThreads>, A, out, n, ng);
     if (err != cudaSuccess) return (int)err;
   } else if (s.scratch == 0) {
-    spd_inverse_kernel<true><<<batch, kThreads, s.smem, stream>>>(A, out, nullptr, n);
+    spd_inverse_kernel<true><<<batch, kThreads, s.smem, stream>>>(A, out, nullptr, n, ng);
   } else {
-    spd_inverse_kernel<false><<<batch, kThreads, 0, stream>>>(A, out, scratch, n);
+    spd_inverse_kernel<false><<<batch, kThreads, 0, stream>>>(A, out, scratch, n, ng);
   }
   return (int)cudaGetLastError();
 }

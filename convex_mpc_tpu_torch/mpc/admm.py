@@ -35,7 +35,7 @@ from convex_mpc_tpu_torch._device import const
 from convex_mpc_tpu_torch.mpc import kernels
 from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
 from convex_mpc_tpu_torch.mpc.qp import QpData
-from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
+from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
 from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
 from convex_mpc_tpu_torch.utils.interop import tree_map
 from convex_mpc_tpu_torch.utils.profiling import count, span
@@ -216,12 +216,7 @@ def _polish_core(o: PolishOps, a_lo, a_hi, reduced: bool):
         Hn = H / (djr[:, :, None] * djr[:, None, :]) + 1e-6 * eye
         count("polish_solves")
         count("polish_rows", B)
-        # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
-        # (convex_mpc_tpu/mpc/admm.py:670-676), not a stand-in for the kernel
-        if nz % 32 == 0:
-            Hinv = spd_inverse(Hn)
-        else:
-            Hinv = spd_inverse_plain(Hn)
+        Hinv = spd_inverse(Hn)
         zr = torch.einsum("bnm,bn->bm", Hinv, rhs_r / djr) / djr
         x_pol = x_p + torch.einsum("bmn,bn->bm", Pi, zr)
     else:
@@ -347,20 +342,12 @@ def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3
                                 scaling_iters), rho)
 
 
-def _inverse(M: torch.Tensor) -> torch.Tensor:
-    if M.shape[-1] % 32 == 0:
-        return spd_inverse(M)
-    # nz % 32 != 0 (horizon 10, nz = 120): JAX's own XLA Cholesky branch
-    # (convex_mpc_tpu/mpc/admm.py:946-949), not a stand-in for the kernel
-    return spd_inverse_plain(M)
-
-
 def _factorize(setup: KktSetup, rho) -> torch.Tensor:
     """M(rho)^-1 of every scenario."""
     count("kkt_factorizations")
     count("kkt_rows", rho.shape[0])
     with span("mpc.solve.factor"):
-        return _inverse(kkt_matrix(setup, rho))
+        return spd_inverse(kkt_matrix(setup, rho))
 
 
 def _refactor(setup: KktSetup, rho, Minv: torch.Tensor, changed, k: int) -> torch.Tensor:
@@ -377,7 +364,7 @@ def _refactor(setup: KktSetup, rho, Minv: torch.Tensor, changed, k: int) -> torc
         idx = torch.nonzero_static(changed, size=k)[:, 0]  # k is known: no wait for the size
         sub = setup._replace(P_mat=setup.P_mat[idx], K=setup.K[idx],
                              K_box_diag=setup.K_box_diag[idx])
-        return Minv.index_copy_(0, idx, _inverse(kkt_matrix(sub, rho[idx])))
+        return Minv.index_copy_(0, idx, spd_inverse(kkt_matrix(sub, rho[idx])))
 
 
 # ---------------------------------------------------------------------------

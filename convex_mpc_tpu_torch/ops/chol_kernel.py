@@ -5,8 +5,14 @@ kernel). The CUDA kernel is ``csrc/spd_inverse.cu``; its C side decides
 whether the packed working set lives in one CTA's shared memory, split over
 the shared memories of a cluster of two CTAs, or in a device-memory scratch
 buffer, and ``spd_inverse_shape`` reads that choice back (design and bound
-in its header). The wrapper takes the plain PyTorch version for CPU tensors
-only; a CUDA tensor launches the kernel or raises.
+in its header). Any order n: the kernel runs a matrix on its 16-row panel
+grid, n rounded up to ``grid_order(n)``, with the identity in the pad, and
+stores the n x n block. The wrapper takes the plain PyTorch version for CPU
+tensors only; a CUDA tensor launches the kernel or raises. On either route
+it counts the work in ``utils.profiling``'s counters:
+``spd_inverse.ops`` (n^3 a matrix), and for a matrix whose grid is larger
+than n, ``spd_inverse.padded`` (matrices) and ``spd_inverse.pad_ops``
+(grid_order(n)^3 - n^3 a matrix).
 
 Both versions return NaN for every matrix whose Cholesky meets a pivot that
 is not positive: the polish certificate relies on that signal.
@@ -19,10 +25,14 @@ import ctypes
 import torch
 
 from convex_mpc_tpu_torch.utils import cuda_build
+from convex_mpc_tpu_torch.utils.profiling import count
 
-# n must be a multiple of N_MULTIPLE (the solver dispatches here on
-# nz % 32 == 0; the kernel's panels are 16 wide).
-N_MULTIPLE = 32
+PANEL = 16  # the kernel's panel width (NB in csrc/spd_inverse.cu)
+
+
+def grid_order(n: int) -> int:
+    """The order of the panel grid the kernel runs a matrix of order n on."""
+    return -(-n // PANEL) * PANEL
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
@@ -61,7 +71,8 @@ def _library() -> ctypes.CDLL:
 
 def spd_inverse_shape(n: int) -> tuple[int, int, int, int]:
     """The launch ``csrc/spd_inverse.cu`` makes for n on the current card, as
-    its C side chooses it: (dynamic shared-memory bytes per CTA, scratch
+    its C side chooses it at ``grid_order(n)`` (an n that is no multiple of
+    4 always in the scratch): (dynamic shared-memory bytes per CTA, scratch
     floats per matrix, resident, CTAs per cluster). One CTA a matrix (4th
     field 1) holds the packed working set of n (n + 4) / 2 floats on chip
     (scratch 0) or in the scratch (shared bytes 0), and ``resident`` counts
@@ -92,16 +103,21 @@ def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
 
 
 def spd_inverse(A: torch.Tensor) -> torch.Tensor:
-    """Batched SPD inverse of (B, n, n) f32, n a multiple of ``N_MULTIPLE``."""
-    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] % N_MULTIPLE != 0:
-        raise ValueError(f"spd_inverse expects (B, n, n) with n % {N_MULTIPLE} == 0, "
-                         f"got {tuple(A.shape)}")
+    """Batched SPD inverse of (B, n, n) f32, any n > 0."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0:
+        raise ValueError(f"spd_inverse expects (B, n, n) with n > 0, got {tuple(A.shape)}")
     if A.dtype != torch.float32:
         raise TypeError(f"spd_inverse is f32-only, got {A.dtype}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spd_inverse runs on CPU or CUDA tensors, got {A.device}")
+    B, n = A.shape[0], A.shape[1]
+    count("spd_inverse.ops", B * n ** 3)
+    pad = grid_order(n) ** 3 - n ** 3
+    if pad:
+        count("spd_inverse.padded", B)
+        count("spd_inverse.pad_ops", B * pad)
     if A.device.type == "cpu":
         return spd_inverse_plain(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"spd_inverse runs on CPU or CUDA tensors, got {A.device}")
     A = A.contiguous()
     out = torch.empty_like(A)
     if A.shape[0] > 0:

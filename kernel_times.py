@@ -4,8 +4,10 @@
 
 Imports ``convex_mpc_tpu_torch`` from DIR (default: the directory of this
 script), which builds its kernels under DIR, and times on one card, at
-B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 192, 288
-and 384 (horizons 16, 24, 32) on ``chip_smoke.spd_batch(512, n, 7)``; at
+B = 512 on ``chip_smoke.py``'s problems: ``spd_inverse`` at n = 120, 192,
+288 and 384 (horizons 10, 16, 24, 32) on ``chip_smoke.spd_batch(512, n,
+7)`` (a checkout whose wrapper refuses n = 120 prints why, with ``ms``
+null); at
 25 iterations (seed 11) ``admm_iterations_structured`` at each nb, and at
 25 and 10 iterations ``admm_iterations`` on the legacy path's A at horizons
 16, 24 and 32 (``chip_smoke.DENSE_SHAPES``: condensed (448, 192), (672,
@@ -18,7 +20,7 @@ tick window
 ``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
 microseconds per call of its wrapper, 100 calls queued without a wait), and
-one per horizon, 16 and 32 (n = 192 and 384), with ``spd_inverse``'s error
+one per horizon, 10, 16 and 32 (n = 120, 192 and 384), with ``spd_inverse``'s error
 on ``chip_smoke.attractor_kkt`` (cond ~1e4) against the f64 inverse, as a
 fraction of its largest entry, and its residual |K out - I|, each beside
 the plain version's. To compare two checkouts, run it on each in one call
@@ -37,7 +39,7 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent
-SPD_N = (192, 288, 384)  # spd_inverse at horizons 16, 24, 32
+SPD_N = (120, 192, 288, 384)  # spd_inverse at horizons 10, 16, 24, 32
 KERNELS = ("spd", "admm", "dense", "tick")
 
 
@@ -92,13 +94,23 @@ def main() -> None:
 
 
 def spd_times(root, smoke, spd_inverse, dev, B) -> None:
+    refused = {}
     for n in SPD_N:
         A = smoke.spd_batch(B, n, 7, dev)
+        try:
+            spd_inverse(A)
+        except ValueError as e:  # an older wrapper: n a multiple of 32 only
+            refused[n] = str(e)
+            print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": n,
+                              "ms": None, "why": refused[n]}))
+            continue
         ms = smoke.cuda_ms(lambda: spd_inverse(A))
         print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": n,
                           "ms": ms, "host_us": host_us(lambda: spd_inverse(A))}))
         del A
-    for horizon in (16, 32):
+    for horizon in (10, 16, 32):
+        if 12 * horizon in refused:
+            continue
         kkt = smoke.attractor_kkt(dev, horizon=horizon)
         k = smoke.spd_kkt_errors(kkt)
         print(json.dumps({"root": str(root), "kernel": "spd_inverse", "B": B, "n": kkt.shape[-1],

@@ -113,6 +113,35 @@ def test_spd_inverse_kernel_matches_plain(n):
     _check_spd(A, bad=(3, 9))
 
 
+@pytest.mark.parametrize("horizon", [10, 12, 14, 18, 20])
+def test_spd_inverse_kernel_at_horizon_orders(horizon):
+    """n = 12 x horizon off the 32-grid (120, 144, 168, 216, 240): on its
+    16-row panel grid, padded where n is not a multiple of 16, at B = 200
+    with two matrices not SPD; the n = 192 test's bars."""
+    _need_cuda()
+    n = 12 * horizon
+    A = spd_batch(200, n, 13, torch.device("cuda"))
+    spd_nonspd(A, 3, 150)
+    _check_spd(A, bad=(3, 150))
+
+
+@pytest.mark.parametrize("n", [37, 348, 436])
+def test_spd_inverse_kernel_any_order(n):
+    """Orders padded in each instance: a cluster of 2 (348 on 352), the
+    scratch (436 on 448), and rows that are not 16-byte aligned (37 on 48),
+    which run the scratch instance at any n."""
+    _need_cuda()
+    A = spd_batch(16, n, 3, torch.device("cuda"))
+    spd_nonspd(A, 2, 11)
+    _check_spd(A, bad=(2, 11))
+    grid = TCK.grid_order(n)
+    if n % 4:
+        smem, scratch, resident, csize = TCK.spd_inverse_shape(n)
+        assert (smem, scratch, csize) == (0, grid * (grid + 4) // 2, 1) and resident >= 1
+    else:
+        assert TCK.spd_inverse_shape(n) == TCK.spd_inverse_shape(grid)
+
+
 @pytest.mark.parametrize("n", [192, 384])
 @pytest.mark.parametrize("B", [1, 133])
 def test_spd_inverse_kernel_batch_sizes(B, n):
@@ -442,9 +471,9 @@ def test_profiled_cycle_spans_are_host_only():
 @pytest.mark.parametrize("horizon", [32, 16, 10])
 def test_subset_refactor_bitwise_on_card(horizon):
     """37 of 200 scenarios move their rho (one to a non-SPD M): the subset
-    refactor through kernel 1 (n = 384, 192; horizon 10's nz = 120 through
-    the plain branch) equals the whole-batch factorization bit for bit, in
-    place, with no host synchronisation."""
+    refactor through kernel 1 (n = 384, 192, and horizon 10's nz = 120 on
+    its padded grid of 128) equals the whole-batch factorization bit for
+    bit, in place, with no host synchronisation."""
     _need_cuda()
     dev = torch.device("cuda")
     B, k = 200, 37
@@ -467,7 +496,7 @@ def test_subset_refactor_bitwise_on_card(horizon):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert out is Minv
-    assert TCK.spd_inverse.launches == before + (1 if 12 * horizon % 32 == 0 else 0)
+    assert TCK.spd_inverse.launches == before + 1
     assert torch.isnan(out[rows[0]]).all()
     assert torch.isfinite(out[torch.arange(B, device=dev) != rows[0]]).all()
     torch.testing.assert_close(out, whole, rtol=0, atol=0, equal_nan=True)

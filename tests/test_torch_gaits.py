@@ -2,8 +2,9 @@
 
 ``tools/torch_multi_config_bench.py`` runs three configurations no other
 port test drives through ``mpc_cycle_batch``: trot at horizon 10 (nz = 120,
-nb = 40: the KKT inverse takes JAX's own non-kernel branch, nz % 32 != 0,
-and on the card the structured chunk its generic instance) and the bound
+nb = 40: JAX's KKT inverse takes its own non-kernel branch, nz % 32 != 0;
+on the card the port's kernel 1 pads it to 128 and the structured chunk
+runs its generic instance) and the bound
 and pace gaits at horizon 16 (``make_gait_params(phase_offset=...)``). Each
 runs as the tool runs it: default contact, ``solver_iters`` 1000, ``mpc_dt``
 the gait period over the horizon, vx 0.5 (trot) or 0.3 (bound, pace).

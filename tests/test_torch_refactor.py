@@ -132,9 +132,12 @@ def test_cycles_equal_whole_batch_refactors(monkeypatch):
             assert len(a_leaves) == len(b_leaves) > 0
             for a, b in zip(a_leaves, b_leaves):
                 assert torch.equal(a, b)
+    rows_counted = ("kkt_rows", "spd_inverse.ops")  # follow the rows inverted
     for a, b in zip(sub_counts, whole_counts):
         assert a["kkt_factorizations"] == b["kkt_factorizations"]
         assert b["kkt_rows"] == 4 * b["kkt_factorizations"]
         assert 4 <= a["kkt_rows"] < 4 * a["kkt_factorizations"]
-        assert {k: v for k, v in a.items() if k != "kkt_rows"} == {
-            k: v for k, v in b.items() if k != "kkt_rows"}
+        for c in (a, b):
+            assert c["spd_inverse.ops"] == (c["kkt_rows"] + c["polish_rows"]) * 192 ** 3
+        assert {k: v for k, v in a.items() if k not in rows_counted} == {
+            k: v for k, v in b.items() if k not in rows_counted}

@@ -14,8 +14,8 @@ each config is timed alone for its per-config solves/s. Upright rate per
 config at the end: 0.1 < z < 0.6, |roll|, |pitch| < 0.6, all of q finite.
 ``mpc_dt`` is the gait period over the horizon.
 
-At horizon 10 (nz = 120) the KKT inverse takes JAX's own non-kernel branch
-(nz % 32 != 0) and the structured chunk its generic instance (nb = 40).
+At horizon 10 (nz = 120) kernel 1 inverts the KKT matrix on its panel grid
+padded to 128 and the structured chunk runs its generic instance (nb = 40).
 
 Runs on the CUDA card; ``--cpu`` runs every kernel's plain version on the
 CPU (for tests; its times are CPU times). Prints the card's name and power

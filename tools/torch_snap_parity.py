@@ -80,6 +80,7 @@ def main() -> None:
     from convex_mpc_tpu.sim import engine as JE
     from convex_mpc_tpu.sim import physics as JP
     from convex_mpc_tpu_torch.mpc import admm as TA
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse_plain
     from convex_mpc_tpu_torch.utils.interop import tree_map
     from torch_parity import to_port
 
@@ -87,7 +88,7 @@ def main() -> None:
     dtype = np.float64 if a.f64 else np.float32
     if a.f64:
         JCK.spd_inverse = jnp.linalg.inv
-        TA.spd_inverse = TA.spd_inverse_plain
+        TA.spd_inverse = spd_inverse_plain
         TA.kernels.admm_iterations_structured = TA.kernels.admm_iterations_structured_plain
 
     dyn = JD.build_dyn()

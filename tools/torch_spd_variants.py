@@ -115,7 +115,7 @@ _NOSHADOW = [("        later(prev, c0 - NB, tid - 32, NT - 32);\n", ""),
               "    later(mine, c0, tid, NT);  // the later panels from panel q\n")]
 VARIANTS = {
     "shipped": [],
-    "all_cluster": [("  if (bytes <= room) {\n", "  if (false) {\n")],
+    "all_cluster": [("  if (aligned && bytes <= room) {\n", "  if (false) {\n")],
     "t256": _T256,
     "noshadow": _NOSHADOW,
     "dsmem3": [("#pragma unroll 4\n" + _COPY, ""),
