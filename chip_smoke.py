@@ -46,7 +46,12 @@ Phases (any failure exits non-zero and prints no result line):
    shared bytes and resident clusters printed; the launch at A (280, 120)
    (horizon 10) reported, and
    an n that is not a multiple of 4 (A (21, 30), B = 8, padded) within
-   2e-4 of the plain version. Before them, each kernel's
+   2e-4 of the plain version; the adapt step's two kernels (``adapt_check``,
+   ``adapt_rho``) bitwise equal to their plain versions at nb = 40, 64, 96,
+   128 and B = 1, 7, 512 with a NaN row, in every chunk kind, and on the
+   descent's log test packed around its threshold, then timed with their
+   bounds and the eager stretch they replaced at B = 512 and at each cell's
+   (B, nb) (``check_adapt``). Before them, each kernel's
    ``ptxas -v`` lines; every kernel must show no stack frame and no
    spills;
 4. the main path: ``mpc_cycle_batch`` with ``engine_kwargs_batched(
@@ -492,6 +497,214 @@ def check_admm_chunk(dev) -> list:
                replaces="convex_mpc_tpu/mpc/kernels.py:456", max_abs_err=worst)
     return [dict(name="admm_iterations_structured", **row, **rows[64]),
             dict(name="admm_iterations_structured (nb 40)", **row, **rows[40], shape=[40])]
+
+
+# the solver's settings of the adapt step (admm.solve_adaptive's defaults)
+ADAPT_SETTINGS = dict(rho_accept_max=5e-4, stall_tol=0.02, stall_dual_cap=2.5)
+# the adapt step at each cell's shape: (B, nb) of h32_trot1280, h16_sweep1k, h10_sweep10k
+ADAPT_CELLS = ((1280, 128), (1024, 64), (10240, 40))
+
+
+def adapt_problem(B: int, nb: int, seed: int, dev, nan_row: int | None = None) -> dict:
+    """Seeded operands of ``kernels.adapt_check``, in its argument order:
+    friction-pyramid blocks, a symmetric P scaled by a Ruiz-like d, an
+    iterate and its predecessor (a step across the stall tolerance), z and y,
+    rho across the accept threshold, and flags of earlier chunks;
+    ``nan_row``: that scenario's iterate is NaN."""
+    rng = np.random.default_rng(seed)
+    nz, m = 3 * nb, 7 * nb
+    base = np.array([[1, 0, 0.8], [-1, 0, 0.8], [0, 1, 0.8], [0, -1, 0.8]], np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    d = t(rng.uniform(0.5, 2.0, (B, nz)))
+    S = t(rng.standard_normal((B, nz, nz), dtype=np.float32))
+    P = ((0.15 * (S + S.transpose(1, 2)) + torch.eye(nz, device=dev))
+         * d[:, :, None] * d[:, None, :]).contiguous()
+    del S
+    x = rng.standard_normal((B, nz))
+    out = dict(P=P, C=t(base + 0.05 * rng.standard_normal((B, nb, 4, 3))),
+               box_diag=t(rng.uniform(0.8, 1.2, (B, nz))), q=t(rng.standard_normal((B, nz))),
+               d=d, x=t(x), x_prev=t(x + 0.006 * rng.standard_normal((B, nz))),
+               z=t(rng.standard_normal((B, m))), y=t(rng.standard_normal((B, m))),
+               rho=t(10.0 ** rng.uniform(-5, -1, B)),
+               converged=t(rng.random(B) < 0.3, torch.bool),
+               conv_iter=t(np.where(rng.random(B) < 0.5, -1, 25), torch.int32))
+    if nan_row is not None:
+        out["x"][nan_row] = float("nan")
+    return out
+
+
+def adapt_rho_problem(B: int, seed: int, dev, nan_row: int | None = None,
+                      log_sweep: bool = False) -> dict:
+    """Seeded operands of ``kernels.adapt_rho`` (nz = 24), in its argument
+    order: pr and dr across 1 (and dr at the clamp's floor and at both
+    thresholds), a step across the stall tolerance, rho across the accept
+    threshold, adapt counts up to the cap, polish outcomes, forces across
+    the small-force scale (40% of the rows a hundredth of the rest);
+    ``nan_row``: that scenario's pr, dr, step and iterate NaN.
+    ``log_sweep``: every scenario open and at rho 1e-2 with sqrt(pr / dr)
+    packed around 1 / 5, so that its descent's test |log(rho_desc / rho)| >
+    log 5 falls on either side within a few ulp."""
+    rng = np.random.default_rng(seed)
+    nz = 24
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    v = dict(pr=t(10.0 ** rng.uniform(-2, 2, B)), dr=t(10.0 ** rng.uniform(-2, 2, B)),
+             step=t(10.0 ** rng.uniform(-3, -1, B)), rho=t(10.0 ** rng.uniform(-6, -1, B)),
+             converged=t(rng.random(B) < 0.4, torch.bool),
+             conv_iter=t(np.where(rng.random(B) < 0.5, -1, 50), torch.int32),
+             d_count=t(rng.integers(0, 4, B), torch.int32),
+             pol_ok=t(rng.random(B) < 0.6, torch.bool),
+             x=t(60.0 * rng.standard_normal((B, nz))), d=t(rng.uniform(0.5, 2.0, (B, nz))))
+    v["x"] *= t(np.where(rng.random(B) < 0.4, 0.01, 1.0))[:, None]  # small forces: step decides
+    if log_sweep:
+        v["pr"] = t(4.0 * np.linspace(0.2 - 1e-4, 0.2 + 1e-4, B) ** 2)
+        v["dr"] = torch.full_like(v["pr"], 4.0)  # above 1: no gate step
+        v["rho"] = torch.full_like(v["pr"], 1e-2)
+        v["converged"] = torch.zeros_like(v["converged"])
+        v["d_count"] = torch.zeros_like(v["d_count"])
+    elif B >= 4:
+        v["dr"][:3] = torch.tensor([0.0, 1.0, 2.5])
+        v["pr"][3] = 1.0
+    if nan_row is not None:
+        for k in ("pr", "dr", "step", "x"):
+            v[k][nan_row] = float("nan")
+    return v
+
+
+# the adapt_rho settings of each chunk kind: polish, apply_polish, at_boundary, rescue
+ADAPT_RHO_CASES = {
+    "plain chunk": (True, False, False, False),
+    "adapt boundary": (True, False, True, False),
+    "rescue chunk": (True, False, False, True),
+    "mid-loop polish": (True, True, True, False),
+    "no polish": (False, False, True, True),
+}
+
+
+def adapt_rho_kwargs(case: str) -> dict:
+    polish, apply_polish, at_boundary, rescue = ADAPT_RHO_CASES[case]
+    return dict(nu=12, polish=polish, apply_polish=apply_polish, at_boundary=at_boundary,
+                rescue=rescue, max_adapts=3, stall_tol=0.02, small_force_scale=50.0,
+                log_ratio=float(np.log(5.0)), rho_accept_max=5e-4)
+
+
+def adapt_check_eager(P, C, box_diag, q, d, x, x_prev, z, y, rho, converged, conv_iter,
+                      iters_done, eps_abs, eps_rel, rho_accept_max, stall_tol, stall_dual_cap):
+    """Yardstick and oracle: the residual and convergence check as the solve
+    ran it before ``adapt_check`` (eager; einsum block products and a batched
+    matvec for P x, which cuBLAS runs as GEMVs). Returns (pr, dr, step,
+    converged, conv_iter)."""
+    B, nb = C.shape[0], C.shape[1]
+    nz, m_fr = 3 * nb, 4 * nb
+    ax = torch.cat([torch.einsum("bnfr,bnr->bnf", C, x.reshape(B, nb, 3)).reshape(B, m_fr),
+                    box_diag * x], dim=-1)
+    aty = (torch.einsum("bnfr,bnf->bnr", C, y[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
+           + box_diag * y[:, m_fr:])
+    px = torch.einsum("bnm,bm->bn", P, x)
+    rp = torch.amax(torch.abs(ax - z), dim=-1)
+    ep = eps_abs + eps_rel * torch.maximum(
+        torch.amax(torch.abs(ax), dim=-1), torch.amax(torch.abs(z), dim=-1))
+    rd = torch.amax(torch.abs(px + q + aty), dim=-1)
+    ed = eps_abs + eps_rel * torch.maximum(
+        torch.amax(torch.abs(px), dim=-1),
+        torch.maximum(torch.amax(torch.abs(aty), dim=-1), torch.amax(torch.abs(q), dim=-1)))
+    pr, dr = rp / ep, rd / ed
+    rho_ok = rho <= rho_accept_max
+    step = torch.amax(torch.abs(d * (x - x_prev)), dim=-1)
+    stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+    newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
+    conv_iter = torch.where(newly & (conv_iter < 0), iters_done, conv_iter).to(torch.int32)
+    return pr, dr, step, converged | newly, conv_iter
+
+
+def _same_bits(out, ref) -> bool:
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and bool(((a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point()
+                         else a == b).all()) for a, b in zip(out, ref))
+
+
+def adapt_check_bytes(B: int, nb: int) -> int:
+    """The least traffic of adapt_check: P and the vectors read once (C's
+    blocks, box, q, d, x, x_prev; z, y; rho, the flag and its chunk), the
+    outputs written once (pr, dr, step, flag, chunk)."""
+    nz, m = 3 * nb, 7 * nb
+    return B * (4 * (nz * nz + 12 * nb + 5 * nz + 2 * m + 1) + 1 + 4 + 4 * 3 + 1 + 4)
+
+
+def adapt_rho_bytes(B: int, nu: int = 12) -> int:
+    """The least traffic of adapt_rho: pr, dr, step, rho, the first nu of x
+    and d, the flags and counts read once; rho, counts and flags written."""
+    return B * (4 * (4 + 2 * nu) + 2 + 8 + 4 * 3 + 2)
+
+
+def check_adapt(dev) -> list:
+    """The adapt step's two kernels: bitwise equal to their plain versions at
+    nb = 40, 64, 96 and 128 and B = 1, 7 and 512 (a NaN row at B >= 7), every
+    chunk kind of adapt_rho, and its descent's log test packed around its
+    threshold at B = 65,536 (the rows that moved on either side); then ms of
+    each kernel, its plain version and the eager stretch it replaced (for
+    adapt_rho its plain version, the stretch moved as it stood), with the
+    bound (bytes), at B = 512 and at each cell's (B, nb). Returns the
+    kernel-table rows (B = 512, nb = 64)."""
+    from convex_mpc_tpu_torch.mpc import kernels as K
+
+    for nb in (40, 64, 96, 128):
+        for B in (1, 7, 512):
+            p = adapt_problem(B, nb, 13, dev, nan_row=3 if B >= 7 else None)
+            kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **ADAPT_SETTINGS)
+            out = K.adapt_check(*p.values(), **kw)
+            torch.cuda.synchronize()
+            ref = K.adapt_check_plain(*p.values(), **kw)
+            if not _same_bits(out, ref):
+                fail(f"adapt_check is not bitwise equal to its plain version (B={B}, nb={nb})")
+            print(f"adapt_check B={B} nb={nb}: bitwise, {int(out[5])} open, "
+                  f"{int((out[3] & ~p['converged']).sum())} newly converged")
+        del p
+    for case in ADAPT_RHO_CASES:
+        for B, nan_row in ((1, None), (7, 5), (512, 100)):
+            v = adapt_rho_problem(B, 17, dev, nan_row)
+            out = K.adapt_rho(*v.values(), **adapt_rho_kwargs(case))
+            torch.cuda.synchronize()
+            if not _same_bits(out, K.adapt_rho_plain(*v.values(), **adapt_rho_kwargs(case))):
+                fail(f"adapt_rho is not bitwise equal to its plain version ({case}, B={B})")
+        print(f"adapt_rho {case}: bitwise at B = 1, 7, 512; flags {out[5].tolist()}")
+    v = adapt_rho_problem(1 << 16, 19, dev, log_sweep=True)
+    out = K.adapt_rho(*v.values(), **adapt_rho_kwargs("adapt boundary"))
+    if not _same_bits(out, K.adapt_rho_plain(*v.values(), **adapt_rho_kwargs("adapt boundary"))):
+        fail("adapt_rho's descent test differs from torch.log's near its threshold")
+    if not 0 < int(out[5][0]) < 1 << 16:
+        fail(f"adapt_rho's log test: {int(out[5][0])} of {1 << 16} moved, not some of them")
+    print(f"adapt_rho log test near its threshold: bitwise; {int(out[5][0])} of {1 << 16} moved")
+
+    rows, rho_rows = [], []
+    for B, nb in ((B_MAIN, 64), (B_MAIN, 40), (B_MAIN, 128), *ADAPT_CELLS):
+        p = adapt_problem(B, nb, 13, dev)
+        kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **ADAPT_SETTINGS)
+        ms = cuda_ms(lambda: K.adapt_check(*p.values(), **kw), reps=20)
+        plain_ms = cuda_ms(lambda: K.adapt_check_plain(*p.values(), **kw), reps=3)
+        eager_ms = cuda_ms(lambda: adapt_check_eager(*p.values(), **kw), reps=10)
+        b_ms, b_by = bound(adapt_check_bytes(B, nb), 2 * B * (3 * nb) ** 2)
+        print(f"adapt_check times B={B} nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"eager stretch {eager_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{ms / b_ms:.2f}x the bound")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=eager_ms, shape=[B, nb]))
+        v = adapt_rho_problem(B, 17, dev)
+        r_kw = adapt_rho_kwargs("adapt boundary")
+        r_ms = cuda_ms(lambda: K.adapt_rho(*v.values(), **r_kw), reps=20)
+        # the plain version is the eager stretch it replaced, as it stood
+        r_plain = cuda_ms(lambda: K.adapt_rho_plain(*v.values(), **r_kw), reps=10)
+        rb_ms, rb_by = bound(adapt_rho_bytes(B), 0)
+        print(f"adapt_rho times B={B}: kernel {r_ms:.4f} ms, plain (the eager stretch) "
+              f"{r_plain:.4f} ms, bound {rb_ms:.6f} ms ({rb_by})")
+        rho_rows.append(dict(ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms, bound_by=rb_by,
+                             library_ms=r_plain, shape=[B]))
+        del p, v
+        torch.cuda.empty_cache()
+    note = "none: the fused adapt step that XLA fused in the JAX while_loop (admm.py:964)"
+    return [dict(name="adapt_check", route="cuda", source="convex_mpc_tpu_torch/csrc/admm_adapt.cu",
+                 replaces=note, max_abs_err=0.0, **rows[0]),
+            dict(name="adapt_rho", route="cuda", source="convex_mpc_tpu_torch/csrc/admm_adapt.cu",
+                 replaces=note, max_abs_err=0.0, **rho_rows[0])]
 
 
 TickTraj = namedtuple("TickTraj", ["pos_des_world", "vel_des_world"])
@@ -1018,12 +1231,14 @@ def healthy(state) -> bool:
 
 
 def _all_kernels():
-    from convex_mpc_tpu_torch.mpc.kernels import admm_iterations, admm_iterations_structured
+    from convex_mpc_tpu_torch.mpc.kernels import (
+        adapt_check, adapt_rho, admm_iterations, admm_iterations_structured)
     from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
     from convex_mpc_tpu_torch.sim.tick_fused import run_ticks_fused
 
     return {"spd_inverse": spd_inverse, "admm_iterations_structured": admm_iterations_structured,
-            "run_ticks_fused": run_ticks_fused, "admm_iterations": admm_iterations}
+            "run_ticks_fused": run_ticks_fused, "admm_iterations": admm_iterations,
+            "adapt_check": adapt_check, "adapt_rho": adapt_rho}
 
 
 def tool_device(tool: str, cpu: bool) -> torch.device:
@@ -1561,7 +1776,7 @@ def parity_path() -> None:
 
 # phase 12: the port's counterparts of the JAX tools, each in this process at a
 # small size: (module in tools/, its arguments, the kernels its path must launch)
-ADAPTIVE = ("spd_inverse", "admm_iterations_structured")
+ADAPTIVE = ("spd_inverse", "admm_iterations_structured", "adapt_check", "adapt_rho")
 TOOL_RUNS = (
     ("torch_multi_config_bench", ["--per-config", "64", "--chunk", "64", "--settle", "2",
                                   "--reps", "1", "--json", "build/chip_smoke_tools/mc.json"],
@@ -1702,7 +1917,7 @@ def main() -> None:
     ptxas_report(logs)
 
     kernels = [*check_spd_inverse(dev), *check_admm_chunk(dev), check_tick_window(dev),
-               *check_admm_dense(dev)]
+               *check_admm_dense(dev), *check_adapt(dev)]
     torch.cuda.empty_cache()
 
     paths = main_path(dev)
@@ -1721,7 +1936,8 @@ def main() -> None:
     # windows at those horizons), kernel 2 one for horizon 16 (the main path)
     # and one for horizon 10
     runs = {"admm_iterations_structured": "main",
-            "admm_iterations_structured (nb 40)": "horizon10", "run_ticks_fused": "fused"}
+            "admm_iterations_structured (nb 40)": "horizon10", "run_ticks_fused": "fused",
+            "adapt_check": "main", "adapt_rho": "main"}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

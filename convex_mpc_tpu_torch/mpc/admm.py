@@ -5,9 +5,11 @@ Port of ``convex_mpc_tpu/mpc/admm.py``:
 - ``solve_adaptive`` (``StructuredQp`` input, or a dense ``QpData`` whose A
   has the condensed block structure, its blocks extracted once): Ruiz
   equilibration, the KKT inverse by ``spd_inverse``, 25-iteration chunks of
-  the structured ADMM kernel, per-scenario residual / stall / small-force
-  accepts, the bounded rho descent with rescue and gate steps,
-  refactor-on-demand of the scenarios whose rho moved (``_refactor``), and
+  the structured ADMM kernel, then per chunk the residual / stall check
+  (``kernels.adapt_check``) and the small-force accept, bounded rho descent,
+  rescue and gate steps (``kernels.adapt_rho``), one kernel each on the
+  card (counted ``adapt_fused``), refactor-on-demand of the scenarios whose
+  rho moved (``_refactor``), and
   the certified active-set polish ladder, with the optional snap-first
   proposal that sends only the scenarios it cannot certify through a
   compacted ladder (``snap_first``) and the ``debug`` prints. The JAX
@@ -451,28 +453,6 @@ def solve_adaptive(
 
     box_diag = s.box_diag
 
-    def mv_A(v):
-        fr = torch.einsum("bnfr,bnr->bnf", s.C, v.reshape(B, nb, 3)).reshape(B, m_fr)
-        return torch.cat([fr, box_diag * v], dim=-1)
-
-    def mv_AT(w):
-        fr = torch.einsum("bnfr,bnf->bnr", s.C, w[:, :m_fr].reshape(B, nb, 4)).reshape(B, nz)
-        return fr + box_diag * w[:, m_fr:]
-
-    def residuals(x, z, y):
-        ax = mv_A(x)
-        aty = mv_AT(y)
-        px = _bmv(s.p_dense, x)
-        rp = torch.amax(torch.abs(ax - z), dim=-1)
-        ep = eps_abs + eps_rel * torch.maximum(
-            torch.amax(torch.abs(ax), dim=-1), torch.amax(torch.abs(z), dim=-1))
-        rd = torch.amax(torch.abs(px + s.q + aty), dim=-1)
-        ed = eps_abs + eps_rel * torch.maximum(
-            torch.amax(torch.abs(px), dim=-1),
-            torch.maximum(torch.amax(torch.abs(aty), dim=-1),
-                          torch.amax(torch.abs(s.q), dim=-1)))
-        return rp / ep, rd / ed
-
     def chunk_iters(x, z, y, rho, Minv):
         rho_vec = rho[:, None] * w_vec
         return kernels.admm_iterations_structured(
@@ -550,57 +530,37 @@ def solve_adaptive(
         x_prev = x
         with span("mpc.solve.chunk"):
             x, z, y = chunk_iters(x, z, y, rho, Minv)
-        with span("mpc.solve.adapt"):
-            pr, dr = residuals(x, z, y)
-            rho_ok = rho <= rho_accept_max
-            step = torch.amax(torch.abs(s.d * (x - x_prev)), dim=-1)
-            stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+        with span("mpc.solve.adapt"):  # the residual and convergence check: one kernel
+            pr, dr, step, converged, conv_iter, n_open = kernels.adapt_check(
+                s.p_dense, s.C, box_diag, s.q, s.d, x, x_prev, z, y, rho, converged, conv_iter,
+                iters_done=(it + 1) * check_every, eps_abs=eps_abs, eps_rel=eps_rel,
+                rho_accept_max=rho_accept_max, stall_tol=stall_tol,
+                stall_dual_cap=stall_dual_cap)
             if debug:
                 f = lambda v: v.cpu().numpy()  # noqa: E731
                 print(f"chunk {it} rho={f(rho)} pr={f(pr)} dr={f(dr)} step={f(step)}")
-            newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
-            iters_done = (it + 1) * check_every
-            conv_iter = torch.where(newly & (conv_iter < 0), iters_done,
-                                    conv_iter).to(torch.int32)
-            converged = converged | newly
+        at_cap = want_pol = False
         if polish:
             at_cap = (it + 1) >= n_chunks
             want_pol = at_cap
             if not at_cap:
                 with span("mpc.solve.read.want_polish"):  # host read, once per chunk
                     count("host_reads.want_polish")
-                    want_pol = bool(converged.all())
+                    want_pol = int(n_open) == 0
             if want_pol:
                 with span("mpc.solve.polish"):
                     x_pol_buf, pol_ok = attempt_polish(x, y, step)
-        with span("mpc.solve.adapt"):
-            if polish:
-                x_scale = torch.amax(torch.abs((s.d * x)[:, :first_step_vars]), dim=-1)
-                step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
-                if want_pol and not at_cap:
-                    converged = converged & pol_ok & step_ok
-                conv_iter = torch.where(converged, conv_iter, -1).to(torch.int32)
-            at_boundary = ((it + 1) % adapt_stride) == 0
-            can = ((~converged) & (d_count < max_adapts) if at_boundary
-                   else torch.zeros_like(converged))
-            ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
-            rho_desc = torch.clamp(rho * torch.clamp(ratio, 0.1, 1.0), 1e-6, 1e6)
-            moved = torch.abs(torch.log(rho_desc / rho)) > log_ratio
-            descend = can & moved
-            d_count = d_count + descend.to(torch.int32)
-            rho_new = torch.where(descend, rho_desc, rho)
-            if (it + 1) == rescue_chunk:
-                rescue = (~converged) & (rho <= rho_accept_max)
-            else:
-                rescue = torch.zeros_like(converged)
-            rho_new = torch.where(rescue, 0.1, rho_new)
-            d_count = torch.where(rescue, 0, d_count).to(torch.int32)
-            gate_desc = (~converged) & (pr <= 1.0) & (dr <= 1.0) & (~rho_ok)
-            rho_new = torch.where(gate_desc, torch.clamp(rho * 0.1, min=1e-4), rho_new)
-            # each of the three moves rho; every other scenario keeps its rho
-            # bit for bit, so its row of Minv stands
-            changed = descend | rescue | gate_desc
-            flags = torch.stack([changed.sum(), (~converged).any().to(torch.int64)])
+        with span("mpc.solve.adapt"):  # the rho descent, rescue and gate: one kernel
+            # changed: the scenarios whose rho moved; every other scenario
+            # keeps its rho bit for bit, so its row of Minv stands
+            rho_new, d_count, changed, converged, conv_iter, flags = kernels.adapt_rho(
+                pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, s.d,
+                nu=first_step_vars, polish=polish, apply_polish=want_pol and not at_cap,
+                at_boundary=((it + 1) % adapt_stride) == 0, rescue=(it + 1) == rescue_chunk,
+                max_adapts=max_adapts, stall_tol=stall_tol, small_force_scale=small_force_scale,
+                log_ratio=log_ratio, rho_accept_max=rho_accept_max)
+            if dev.type == "cuda":
+                count("adapt_fused")
         # one host read per chunk: how many rho moved? and does any scenario go on?
         with span("mpc.solve.read.flags"):
             count("host_reads.flags")

@@ -1,6 +1,6 @@
-"""The ADMM iteration kernels: the hand-written CUDA kernels and their plain versions.
+"""The ADMM kernels: the hand-written CUDA kernels and their plain versions.
 
-Two kernels, each replacing a Pallas TPU kernel of
+Two kernels each replace a Pallas TPU kernel of
 ``convex_mpc_tpu/mpc/kernels.py``:
 
 - :func:`admm_iterations_structured` — the structured chunk of the
@@ -26,6 +26,18 @@ Two kernels, each replacing a Pallas TPU kernel of
   multiple of 4 is padded (:func:`_pad_dense`), as the TPU kernel pads to
   128. The plain version is the arithmetic of the TPU ``_kernel``.
 
+Two more replace no TPU kernel: the production solve's per-chunk step,
+which XLA fuses inside the JAX solve's ``while_loop``, as two launches of
+``csrc/admm_adapt.cu`` (design and bound in its header):
+
+- :func:`adapt_check` — after each chunk, the primal and dual residuals
+  over their tolerances (A x and A' y in the block sums above, P x in the
+  order :func:`px_tree` spells out), the step, and the convergence flags,
+  with the count of open scenarios that the host reads;
+- :func:`adapt_rho` — after the chunk's polish decision, the polish
+  accept, the bounded rho descent, rescue and gate, with the counts of
+  moved rho and of open scenarios that the host reads.
+
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises. Each C launcher picks its launch from its own
 shared-memory layout and raises where none fits the card: no other route is
@@ -40,6 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
+from convex_mpc_tpu_torch._device import const
 from convex_mpc_tpu_torch.utils import cuda_build
 
 
@@ -50,26 +63,34 @@ def _next_pow2(x: int) -> int:
     return p
 
 
+def block_at(C, box_diag, w):
+    """A' w of the block form in the kernels' pinned order: per column the
+    4-term sum over its block's face rows in face order, the box term last."""
+    B, nb = C.shape[0], C.shape[1]
+    m_fr = 4 * nb
+    wf = w[:, :m_fr].reshape(B, nb, 4)
+    acc = C[:, :, 0, :] * wf[:, :, 0:1]
+    for f in range(1, 4):
+        acc = acc + C[:, :, f, :] * wf[:, :, f:f + 1]
+    return acc.reshape(B, 3 * nb) + box_diag * w[:, m_fr:]
+
+
+def block_a(C, box_diag, v):
+    """A v of the block form in the kernels' pinned order: per face row the
+    3-term sum over its block's columns in order; then the box rows."""
+    B, nb = C.shape[0], C.shape[1]
+    vr = v.reshape(B, nb, 3)
+    acc = C[:, :, :, 0] * vr[:, :, 0:1]
+    for r in range(1, 3):
+        acc = acc + C[:, :, :, r] * vr[:, :, r:r + 1]
+    return torch.cat([acc.reshape(B, 4 * nb), box_diag * v], dim=-1)
+
+
 def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
                                      iters: int, sigma: float = 1e-6, alpha: float = 1.6):
     """``iters`` over-relaxed ADMM steps per scenario, plain PyTorch."""
-    B, nb = C.shape[0], C.shape[1]
-    nz, m_fr = nb * 3, nb * 4
+    nz = C.shape[1] * 3
     np2 = _next_pow2(max(nz, 128))
-
-    def mv_AT(w):
-        wf = w[:, :m_fr].reshape(B, nb, 4)
-        acc = C[:, :, 0, :] * wf[:, :, 0:1]
-        for f in range(1, 4):
-            acc = acc + C[:, :, f, :] * wf[:, :, f:f + 1]
-        return acc.reshape(B, nz) + box_diag * w[:, m_fr:]
-
-    def mv_A(v):
-        vr = v.reshape(B, nb, 3)
-        acc = C[:, :, :, 0] * vr[:, :, 0:1]
-        for r in range(1, 3):
-            acc = acc + C[:, :, :, r] * vr[:, :, r:r + 1]
-        return torch.cat([acc.reshape(B, m_fr), box_diag * v], dim=-1)
 
     def kkt_matvec(rhs):
         prod = rhs[:, None, :] * Minv  # (B, nz, nz) [n, m]
@@ -83,9 +104,9 @@ def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0
 
     x, z, y = x0, z0, y0
     for _ in range(iters):
-        rhs = sigma * x - q + mv_AT(rho_vec * z - y)
+        rhs = sigma * x - q + block_at(C, box_diag, rho_vec * z - y)
         xt = kkt_matvec(rhs)
-        axt = mv_A(xt)
+        axt = block_a(C, box_diag, xt)
         x_new = alpha * xt + (1.0 - alpha) * x
         ax_rel = alpha * axt + (1.0 - alpha) * z
         z_new = torch.clamp(ax_rel + y / rho_vec, l, u)
@@ -158,6 +179,207 @@ def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
 
 
 admm_iterations_structured.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the adaptive solve's per-chunk step (admm.solve_adaptive)
+# ---------------------------------------------------------------------------
+def px_tree(P, x):
+    """P x per scenario in the adapt kernel's pinned order: row n's products
+    P[n, c] x[c] over columns zero-padded to 128 KP (KP chunks of 128, a
+    power of two), lane l of chunk k holding columns 128 k + 4 l .. + 3; the
+    chunks halved (k + h into k), then in the lane (c0 + c1) + (c2 + c3),
+    then across the 32 lanes by halving (the warp's shuffles)."""
+    B, nz = x.shape
+    kp = _next_pow2(-(-nz // 128))
+    prod = torch.nn.functional.pad(P * x[:, None, :], (0, 128 * kp - nz))
+    v = prod.reshape(B, nz, kp, 32, 4)
+    k = kp
+    while k > 1:
+        h = k // 2
+        v = v[:, :, :h] + v[:, :, h:k]
+        k = h
+    v = v[:, :, 0]
+    s = (v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3])
+    for off in (16, 8, 4, 2, 1):
+        s = s[..., :off] + s[..., off:2 * off]
+    return s[..., 0]
+
+
+def adapt_check_plain(P, C, box_diag, q, d, x, x_prev, z, y, rho, converged, conv_iter,
+                      iters_done: int, eps_abs: float, eps_rel: float, rho_accept_max: float,
+                      stall_tol: float, stall_dual_cap: float):
+    """The residual and convergence check after a chunk, plain PyTorch.
+    Returns (pr, dr, step, converged, conv_iter, open): the primal and dual
+    residuals over their tolerances, the largest scaled step, the updated
+    flags, and (1,) int32: the scenarios not converged."""
+    ax = block_a(C, box_diag, x)
+    aty = block_at(C, box_diag, y)
+    px = px_tree(P, x)
+    rp = torch.amax(torch.abs(ax - z), dim=-1)
+    ep = eps_abs + eps_rel * torch.maximum(
+        torch.amax(torch.abs(ax), dim=-1), torch.amax(torch.abs(z), dim=-1))
+    rd = torch.amax(torch.abs(px + q + aty), dim=-1)
+    ed = eps_abs + eps_rel * torch.maximum(
+        torch.amax(torch.abs(px), dim=-1),
+        torch.maximum(torch.amax(torch.abs(aty), dim=-1), torch.amax(torch.abs(q), dim=-1)))
+    pr, dr = rp / ep, rd / ed
+    step = torch.amax(torch.abs(d * (x - x_prev)), dim=-1)
+    rho_ok = rho <= rho_accept_max
+    stalled = rho_ok & (pr <= 1.0) & (dr <= stall_dual_cap) & (step <= stall_tol)
+    newly = (rho_ok & (pr <= 1.0) & (dr <= 1.0)) | stalled
+    conv_iter = torch.where(newly & (conv_iter < 0), iters_done, conv_iter).to(torch.int32)
+    converged = converged | newly
+    return pr, dr, step, converged, conv_iter, (~converged).sum(dtype=torch.int32).reshape(1)
+
+
+def adapt_rho_plain(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d, nu: int,
+                    polish: bool, apply_polish: bool, at_boundary: bool, rescue: bool,
+                    max_adapts: int, stall_tol: float, small_force_scale: float,
+                    log_ratio: float, rho_accept_max: float):
+    """The rho step after a chunk's polish decision, plain PyTorch: with
+    ``polish``, a scenario's iterate counts as converged only where its step
+    or its first-step forces are large enough (``apply_polish``: and its
+    polish certified); then the bounded descent (``at_boundary``), the
+    rescue (``rescue``) and the gate. Returns (rho_new, d_count, changed,
+    converged, conv_iter, flags): flags (2,) int32, the scenarios whose rho
+    moved and the scenarios not converged."""
+    if polish:
+        x_scale = torch.amax(torch.abs((d * x)[:, :nu]), dim=-1)
+        step_ok = (step <= stall_tol) | (x_scale >= small_force_scale)
+        if apply_polish:
+            converged = converged & pol_ok & step_ok
+        conv_iter = torch.where(converged, conv_iter, -1).to(torch.int32)
+    can = ((~converged) & (d_count < max_adapts) if at_boundary
+           else torch.zeros_like(converged))
+    ratio = torch.sqrt(pr / torch.clamp(dr, min=1e-12))
+    rho_desc = torch.clamp(rho * torch.clamp(ratio, 0.1, 1.0), 1e-6, 1e6)
+    moved = torch.abs(torch.log(rho_desc / rho)) > log_ratio
+    descend = can & moved
+    d_count = d_count + descend.to(torch.int32)
+    rho_new = torch.where(descend, rho_desc, rho)
+    if rescue:
+        rescue_rows = (~converged) & (rho <= rho_accept_max)
+    else:
+        rescue_rows = torch.zeros_like(converged)
+    rho_new = torch.where(rescue_rows, 0.1, rho_new)
+    d_count = torch.where(rescue_rows, 0, d_count).to(torch.int32)
+    gate = (~converged) & (pr <= 1.0) & (dr <= 1.0) & ~(rho <= rho_accept_max)
+    rho_new = torch.where(gate, torch.clamp(rho * 0.1, min=1e-4), rho_new)
+    # each of the three moves rho; every other scenario keeps its rho bit for bit
+    changed = descend | rescue_rows | gate
+    flags = torch.stack([changed.sum(dtype=torch.int32), (~converged).sum(dtype=torch.int32)])
+    return rho_new, d_count, changed, converged, conv_iter, flags
+
+
+def _workspace(device) -> torch.Tensor:
+    """The adapt kernels' counters (int32 zeros, per device): adapt_check's
+    at 0, adapt_rho's at 4. Each launch leaves its part zero."""
+    return const(("adapt_ws",), device, lambda d: torch.zeros(8, dtype=torch.int32, device=d))
+
+
+_ADAPT_FNS: dict = {}
+
+
+def _adapt_fn(name: str, pointers: int, ints: int, floats: int):
+    """``csrc/admm_adapt.cu``'s entry point ``name``, typed once."""
+    fn = _ADAPT_FNS.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load("admm_adapt"), name)
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_float] * floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ADAPT_FNS[name] = fn
+    return fn
+
+
+def _check_adapt(what: str, operands: dict, shapes: dict) -> torch.device:
+    """Raise unless each operand has its shape and dtype ((shape, dtype) in
+    ``shapes``) and all lie on one CPU or CUDA device; returns the device."""
+    dev = next(iter(operands.values())).device
+    for name, t in operands.items():
+        shape, dtype = shapes[name]
+        if t.shape != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} {shape} on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {dev}")
+    return dev
+
+
+def adapt_check(P, C, box_diag, q, d, x, x_prev, z, y, rho, converged, conv_iter,
+                iters_done: int, eps_abs: float, eps_rel: float, rho_accept_max: float,
+                stall_tol: float, stall_dual_cap: float):
+    """The residual and convergence check after a chunk (see
+    :func:`adapt_check_plain`); one kernel launch on the card."""
+    B, nb = C.shape[0], C.shape[1]
+    nz, m = 3 * nb, 7 * nb
+    f32, vz, vm, vb = torch.float32, (B, nz), (B, m), (B,)
+    ops = dict(P=P, C=C, box_diag=box_diag, q=q, d=d, x=x, x_prev=x_prev, z=z, y=y, rho=rho,
+               converged=converged, conv_iter=conv_iter)
+    dev = _check_adapt("adapt_check", ops, dict(
+        P=((B, nz, nz), f32), C=((B, nb, 4, 3), f32), box_diag=(vz, f32), q=(vz, f32),
+        d=(vz, f32), x=(vz, f32), x_prev=(vz, f32), z=(vm, f32), y=(vm, f32), rho=(vb, f32),
+        converged=(vb, torch.bool), conv_iter=(vb, torch.int32)))
+    consts = (eps_abs, eps_rel, rho_accept_max, stall_tol, stall_dual_cap)
+    if dev.type == "cpu":
+        return adapt_check_plain(*ops.values(), iters_done, *consts)
+    pr, dr, step = torch.empty((3, B), dtype=f32, device=dev)
+    conv_out = torch.empty_like(converged)
+    ints = torch.empty((B + 1,), dtype=torch.int32, device=dev)  # conv_iter, then the open count
+    it_out, n_open = ints[:B], ints[B:]
+    fn = _adapt_fn("adapt_check_f32", 19, 3, 5)
+    args = [t.contiguous() for t in ops.values()]  # alive until the launch returns
+    ptrs = [t.data_ptr() for t in args]
+    err = fn(*ptrs, pr.data_ptr(), dr.data_ptr(), step.data_ptr(), conv_out.data_ptr(),
+             it_out.data_ptr(), _workspace(dev).data_ptr(), n_open.data_ptr(), B, nb,
+             iters_done, *consts, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "adapt_check")
+    adapt_check.launches += 1
+    return pr, dr, step, conv_out, it_out, n_open
+
+
+adapt_check.launches = 0
+
+
+def adapt_rho(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d, nu: int,
+              polish: bool, apply_polish: bool, at_boundary: bool, rescue: bool,
+              max_adapts: int, stall_tol: float, small_force_scale: float, log_ratio: float,
+              rho_accept_max: float):
+    """The rho step after a chunk's polish decision (see
+    :func:`adapt_rho_plain`); one kernel launch on the card."""
+    B, nz = x.shape
+    f32, vb = torch.float32, (B,)
+    ops = dict(pr=pr, dr=dr, step=step, rho=rho, x=x, d=d, converged=converged, pol_ok=pol_ok,
+               conv_iter=conv_iter, d_count=d_count)
+    dev = _check_adapt("adapt_rho", ops, dict(
+        pr=(vb, f32), dr=(vb, f32), step=(vb, f32), rho=(vb, f32), x=((B, nz), f32),
+        d=((B, nz), f32), converged=(vb, torch.bool), pol_ok=(vb, torch.bool),
+        conv_iter=(vb, torch.int32), d_count=(vb, torch.int32)))
+    if not 0 <= nu <= nz:
+        raise ValueError(f"adapt_rho: nu = {nu} outside 0..{nz}")
+    host = (nu, polish, apply_polish, at_boundary, rescue, max_adapts)
+    consts = (stall_tol, small_force_scale, log_ratio, rho_accept_max)
+    if dev.type == "cpu":
+        return adapt_rho_plain(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d,
+                               *host, *consts)
+    rho_out = torch.empty((B,), dtype=f32, device=dev)
+    dc_out, it_out = torch.empty((2, B), dtype=torch.int32, device=dev)
+    conv_out, changed = torch.empty((2, B), dtype=torch.bool, device=dev)
+    flags = torch.empty((2,), dtype=torch.int32, device=dev)
+    fn = _adapt_fn("adapt_rho_f32", 17, 8, 4)
+    args = [t.contiguous() for t in ops.values()]  # alive until the launch returns
+    ptrs = [t.data_ptr() for t in args]
+    err = fn(*ptrs, rho_out.data_ptr(), dc_out.data_ptr(), it_out.data_ptr(),
+             conv_out.data_ptr(), changed.data_ptr(), _workspace(dev)[4:].data_ptr(),
+             flags.data_ptr(), B, nz, *(int(v) for v in host), *consts,
+             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "adapt_rho")
+    adapt_rho.launches += 1
+    return rho_out, dc_out, changed, conv_out, it_out, flags
+
+
+adapt_rho.launches = 0
 
 
 # ---------------------------------------------------------------------------

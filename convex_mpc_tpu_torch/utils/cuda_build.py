@@ -27,12 +27,13 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# per-kernel extra flags: the structured ADMM chunk pins its arithmetic order,
-# so no multiply-add contraction anywhere in that file. No file takes
-# --use_fast_math: division and sqrtf stay IEEE.
+# per-kernel extra flags: the structured ADMM chunk and the adapt step pin
+# their arithmetic order, so no multiply-add contraction anywhere in those
+# files. No file takes --use_fast_math: division and sqrtf stay IEEE.
 KERNEL_FLAGS = {
     "spd_inverse": [],
     "admm_structured": ["-fmad=false"],
+    "admm_adapt": ["-fmad=false"],
     "tick_window": [],
     "admm_dense": [],
 }

@@ -1,6 +1,6 @@
 """CUDA-event times of the kernels of one checkout of the port.
 
-    python3 kernel_times.py [--root DIR] [--nb 64 96 128] [--kernels spd admm dense tick]
+    python3 kernel_times.py [--root DIR] [--nb 64 96 128] [--kernels spd admm dense tick adapt]
 
 Imports ``convex_mpc_tpu_torch`` from DIR (default: the directory of this
 script), which builds its kernels under DIR, and times on one card, at
@@ -17,7 +17,9 @@ and the bound (another checkout whose package cannot build the full form,
 or whose kernel refuses a shape, prints why, with ``ms`` null); the fused
 tick window
 (``run_ticks_fused``'s launch) at B = 512 for 20 ticks on
-``chip_smoke.tick_battery(512, 13)``. ``--kernels`` picks which. Prints
+``chip_smoke.tick_battery(512, 13)``; the adapt step's ``adapt_check`` at
+each nb and at each cell's (B, nb), and ``adapt_rho``, with their bounds
+and the eager stretch they replaced. ``--kernels`` picks which. Prints
 the card's name and power limit, then one JSON line per time (``spd_inverse``'s also with the host
 microseconds per call of its wrapper, 100 calls queued without a wait), and
 one per horizon, 10, 16 and 32 (n = 120, 192 and 384), with ``spd_inverse``'s error
@@ -40,7 +42,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 SPD_N = (120, 192, 288, 384)  # spd_inverse at horizons 10, 16, 24, 32
-KERNELS = ("spd", "admm", "dense", "tick")
+KERNELS = ("spd", "admm", "dense", "tick", "adapt")
 
 
 def _smoke():
@@ -91,6 +93,8 @@ def main() -> None:
         dense_times(a.root, smoke, K, dev, B)
     if "tick" in a.kernels:
         tick_times(a.root, smoke, dev, B)
+    if "adapt" in a.kernels:
+        adapt_times(a.root, smoke, K, dev, B, a.nb)
 
 
 def spd_times(root, smoke, spd_inverse, dev, B) -> None:
@@ -205,6 +209,38 @@ def tick_times(root, smoke, dev, B, steps: int = 20) -> None:
     shape = TF.tick_window_shape(B) if hasattr(TF, "tick_window_shape") else None
     print(json.dumps({"root": str(root), "kernel": "run_ticks_fused", "B": B, "steps": steps,
                       "ms": ms, "launch": shape}))
+
+
+def adapt_times(root, smoke, K, dev, B, nbs) -> None:
+    """The adapt step's two kernels at B and each nb, and at each cell's
+    (B, nb) (``chip_smoke.ADAPT_CELLS``), on ``chip_smoke.adapt_problem`` and
+    ``adapt_rho_problem``, each beside its bound (bytes) and the eager
+    stretch it replaced (``chip_smoke.adapt_check_eager``; for adapt_rho
+    ``kernels.adapt_rho_plain``, that stretch as it stood). A checkout
+    without the kernels prints adapt_check's eager stretch alone, with
+    ``ms`` null."""
+    has = hasattr(K, "adapt_check")
+    kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **smoke.ADAPT_SETTINGS)
+    r_kw = smoke.adapt_rho_kwargs("adapt boundary")
+    for b, nb in [(B, nb) for nb in nbs] + list(smoke.ADAPT_CELLS):
+        p = smoke.adapt_problem(b, nb, 13, dev)
+        v = smoke.adapt_rho_problem(b, 17, dev)
+        b_ms, b_by = smoke.bound(smoke.adapt_check_bytes(b, nb), 2 * b * (3 * nb) ** 2)
+        print(json.dumps({"root": str(root), "kernel": "adapt_check", "B": b, "nb": nb,
+                          "ms": smoke.cuda_ms(lambda: K.adapt_check(*p.values(), **kw), reps=20)
+                          if has else None,
+                          "eager_ms": smoke.cuda_ms(lambda: smoke.adapt_check_eager(
+                              *p.values(), **kw)),
+                          "bound_ms": b_ms, "bound_by": b_by}))
+        if has:
+            print(json.dumps({"root": str(root), "kernel": "adapt_rho", "B": b,
+                              "ms": smoke.cuda_ms(lambda: K.adapt_rho(*v.values(), **r_kw),
+                                                  reps=20),
+                              "eager_ms": smoke.cuda_ms(lambda: K.adapt_rho_plain(
+                                  *v.values(), **r_kw)),
+                              "bound_ms": smoke.bound(smoke.adapt_rho_bytes(b), 0)[0]}))
+        del p, v
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

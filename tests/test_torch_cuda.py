@@ -50,7 +50,13 @@ refactor of only the scenarios whose rho moved (``admm._refactor``: 37 of
 200 on the production KKT at horizons 32, 16 and 10, one of them not SPD)
 equals the whole batch's factorization bit for bit (NaN in that row alone),
 writes ``Minv`` in place, launches kernel 1 once and never waits on the
-card.
+card. The adapt step's two kernels (``kernels.adapt_check``, ``adapt_rho``)
+equal their plain versions bit for bit (nb = 40, 64, 96, 128; B = 1, 7, 512;
+a NaN row; every chunk kind of ``adapt_rho``, and its log test packed around
+its threshold; strided operands); a horizon-16 ``solve_adaptive`` through
+them agrees with the CPU's within 2.0 N of first-step force; and a profiled
+production cycle counts ``adapt_fused`` 40 times and launches no cuBLAS GEMV
+from inside an ``mpc.solve.adapt`` span.
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    MAX_FLIPS, attractor_kkt, dense_f64_errors, dense_problem, dense_problem_at,
+    ADAPT_RHO_CASES, ADAPT_SETTINGS, MAX_FLIPS, adapt_problem, adapt_rho_kwargs,
+    adapt_rho_problem, attractor_kkt, dense_f64_errors, dense_problem, dense_problem_at,
     first_kkt_setup, fixed_kwargs, full_form_problem, hetero_battery, random_dense_problem, rounding_flips,
     spd_batch, spd_kkt_errors, spd_nonspd, start_batch, structured_problem, tick_battery,
     window_misses)
@@ -500,3 +507,161 @@ def test_subset_refactor_bitwise_on_card(horizon):
     assert torch.isnan(out[rows[0]]).all()
     assert torch.isfinite(out[torch.arange(B, device=dev) != rows[0]]).all()
     torch.testing.assert_close(out, whole, rtol=0, atol=0, equal_nan=True)
+
+
+def _bitwise(out, ref):
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("nb", [40, 64, 96, 128])
+@pytest.mark.parametrize("B", [1, 7, 512])
+def test_adapt_check_kernel_bitwise_plain(B, nb):
+    """adapt_check (one launch) equals its plain version on the card bit for
+    bit at horizons 10-32, a NaN row's residuals NaN and the row open."""
+    _need_cuda()
+    nan_row = 3 if B >= 7 else None
+    p = adapt_problem(B, nb, 13, torch.device("cuda"), nan_row=nan_row)
+    kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **ADAPT_SETTINGS)
+    before = TK.adapt_check.launches
+    out = TK.adapt_check(*p.values(), **kw)
+    torch.cuda.synchronize()
+    assert TK.adapt_check.launches == before + 1
+    _bitwise(out, TK.adapt_check_plain(*p.values(), **kw))
+    if nan_row is not None:
+        assert torch.isnan(out[0][nan_row]) and torch.isnan(out[1][nan_row])
+        assert bool(out[3][nan_row]) == bool(p["converged"][nan_row])
+    assert int(out[5]) == int((~out[3]).sum())
+
+
+@pytest.mark.parametrize("case", list(ADAPT_RHO_CASES))
+@pytest.mark.parametrize("B", [1, 7, 512])
+def test_adapt_rho_kernel_bitwise_plain(B, case):
+    """adapt_rho (one launch) equals its plain version on the card bit for bit
+    in every chunk kind, with a NaN row; its two counts exact."""
+    _need_cuda()
+    v = adapt_rho_problem(B, 17, torch.device("cuda"), nan_row=5 if B >= 7 else None)
+    before = TK.adapt_rho.launches
+    out = TK.adapt_rho(*v.values(), **adapt_rho_kwargs(case))
+    torch.cuda.synchronize()
+    assert TK.adapt_rho.launches == before + 1
+    _bitwise(out, TK.adapt_rho_plain(*v.values(), **adapt_rho_kwargs(case)))
+    assert out[5].tolist() == [int(out[2].sum()), int((~out[3]).sum())]
+
+
+def test_adapt_rho_kernel_log_test_near_threshold():
+    """65,536 open scenarios whose descent ratio lies within a few ulp of
+    1 / 5 on either side: the kernel's logf decides |log(rho_desc / rho)| >
+    log 5 as torch.log does, row for row."""
+    _need_cuda()
+    v = adapt_rho_problem(1 << 16, 19, torch.device("cuda"), log_sweep=True)
+    kw = adapt_rho_kwargs("adapt boundary")
+    out = TK.adapt_rho(*v.values(), **kw)
+    ref = TK.adapt_rho_plain(*v.values(), **kw)
+    _bitwise(out, ref)
+    assert 0 < int(out[5][0]) < 1 << 16
+
+
+def test_adapt_kernels_on_strided_operands():
+    """Both kernels on strided operands, each pair of one size (x and x_prev,
+    x and d, pr and dr interleaved; rho one scenario's, expanded): bit for
+    bit their plain versions on the same views and the kernel on
+    contiguous copies."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    p = adapt_problem(512, 64, 13, dev, nan_row=3)
+    kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **ADAPT_SETTINGS)
+    s = dict(p, rho=p["rho"][:1].expand(512))
+    s["x"], s["x_prev"] = torch.stack([p["x"], p["x_prev"]], dim=-1).unbind(-1)
+    assert not (s["x"].is_contiguous() or s["x_prev"].is_contiguous() or s["rho"].is_contiguous())
+    out = TK.adapt_check(*s.values(), **kw)
+    _bitwise(out, TK.adapt_check_plain(*s.values(), **kw))
+    _bitwise(out, TK.adapt_check(*(t.contiguous() for t in s.values()), **kw))
+    v = adapt_rho_problem(512, 17, dev, nan_row=5)
+    r = dict(v, rho=v["rho"][:1].expand(512))
+    r["x"], r["d"] = torch.stack([v["x"], v["d"]], dim=-1).unbind(-1)
+    r["pr"], r["dr"] = torch.stack([v["pr"], v["dr"]], dim=-1).unbind(-1)
+    r_kw = adapt_rho_kwargs("mid-loop polish")
+    out = TK.adapt_rho(*r.values(), **r_kw)
+    _bitwise(out, TK.adapt_rho_plain(*r.values(), **r_kw))
+    _bitwise(out, TK.adapt_rho(*(t.contiguous() for t in r.values()), **r_kw))
+
+
+def test_solve_adaptive_h16_card_vs_cpu():
+    """One solve_adaptive of the production cycle's first QP batch at horizon
+    16 (B = 8) on the card (adapt_check and adapt_rho every chunk) and on the
+    CPU (their plain versions): first-step forces within 2.0 N."""
+    _need_cuda()
+    from convex_mpc_tpu_torch.mpc import condensed as TC
+
+    dev = torch.device("cuda")
+    kw = TCFG.engine_kwargs_batched(TCFG.DEFAULT_CONFIG)
+    dyn, gait_b, _, sched_b, state_b = start_batch(8, dev)
+    qd = torch.as_tensor(kw["q_diag"], dtype=torch.float32, device=dev)
+    data = TE.cycle_update(dyn, gait_b, sched_b, state_b, qd, kw["n"], kw["mpc_dt"],
+                           kw["r_value"], kw["mu_mpc"], kw["fz_min"])[0]
+    solve = dict(max_iter=kw["solver_iters"], check_every=kw["check_every"],
+                 box_tail=12 * kw["n"], stall_tol=kw["stall_tol"], polish=kw["polish"],
+                 nu=TC.NU)
+    before = (TK.adapt_check.launches, TK.adapt_rho.launches)
+    s_gpu = TA.solve_adaptive(data, state_b.solver, **solve)
+    torch.cuda.synchronize()
+    chunks = TK.adapt_check.launches - before[0]
+    assert chunks > 0 and TK.adapt_rho.launches - before[1] == chunks
+    cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
+    s_cpu = TA.solve_adaptive(cpu(data), cpu(state_b.solver), **solve)
+    du0 = (s_gpu.x[:, :12].cpu() - s_cpu.x[:, :12]).abs().max().item()
+    assert du0 < 2.0, du0  # Newtons
+
+
+def _device_ops_by_span(events):
+    """Each device operation's name and the innermost ``mpc.`` span open on
+    the host when its launch was called."""
+    import bisect
+
+    dev_t = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type() != dev_t]
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in host
+                   if e.name().startswith("mpc."))
+    starts = [s for s, _, _ in spans]
+    launch = {e.correlation_id(): e.start_ns() for e in host
+              if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    out = []
+    for e in events:
+        if e.device_type() != dev_t or e.correlation_id() not in launch:
+            continue
+        t = launch[e.correlation_id()]
+        inner = [sp for sp in spans[:bisect.bisect_right(starts, t)] if sp[1] >= t]
+        out.append((e.name(), min(inner, key=lambda sp: sp[1] - sp[0])[2] if inner else None))
+    return out
+
+
+def test_profiled_cycle_adapt_fused_without_gemv():
+    """A profiled production cycle at B = 256 (horizon 16, fused ticks, from
+    a settled state) runs the 40-chunk cap: the solve counts adapt_fused
+    once a chunk, 40, each kernel launches once a chunk, and no cuBLAS GEMV
+    runs from inside an ``mpc.solve.adapt`` span."""
+    _need_cuda()
+    from convex_mpc_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    dyn, gait, contact, sched, state = start_batch(256, dev)
+    kw = TCFG.engine_kwargs_batched(TCFG.DEFAULT_CONFIG)
+    kw["use_fused_ticks"] = True
+    for _ in range(2):
+        state, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
+    torch.cuda.synchronize()
+    profiling.reset_counts()
+    before = TK.adapt_check.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
+        torch.cuda.synchronize()
+    c = profiling.counts()
+    assert c["adapt_fused"] == c["host_reads.flags"] == TK.adapt_check.launches - before == 40, c
+    ops = _device_ops_by_span(prof.profiler.kineto_results.events())
+    in_adapt = [n for n, sp in ops if sp == "mpc.solve.adapt"]
+    assert sum("adapt_check" in n for n in in_adapt) == 40
+    assert sum("adapt_rho" in n for n in in_adapt) == 40
+    assert not [n for n in in_adapt if "gemv" in n.lower()]

@@ -108,7 +108,8 @@ def _two_cycles(whole: bool, monkeypatch):
                             lambda setup, rho, Minv, changed, k: admm._factorize(setup, rho))
     kw = C.engine_kwargs_batched(C.DEFAULT_CONFIG)
     assert kw["n"] == 16
-    dyn, gait, contact, sched, state = start_batch(4, torch.device("cpu"))
+    # x offsets of +-5 cm: rho moves in both cycles, so each refactors a subset
+    dyn, gait, contact, sched, state = start_batch(4, torch.device("cpu"), x_spread=0.05)
     out, counts = [], []
     for _ in range(2):
         PR.reset_counts()
