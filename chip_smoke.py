@@ -986,6 +986,7 @@ def full_form_problem(B: int, dev, rho: float = 0.1, horizon: int = HORIZON):
     (equality rows weighted 1e3), and the cold start."""
     from convex_mpc_tpu_torch.control import reference as R
     from convex_mpc_tpu_torch.mpc import admm, qp
+    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse_plain
     from convex_mpc_tpu_torch.sim import engine as E
 
     dyn, gait_b, _, sched_b, state = start_batch(B, dev, horizon)
@@ -1001,7 +1002,7 @@ def full_form_problem(B: int, dev, rho: float = 0.1, horizon: int = HORIZON):
     w = torch.where((data.u - data.l) < 1e-9, admm.EQ_SCALE, 1.0)
     rho_vec = rho * w
     K = torch.matmul(s.A.transpose(1, 2), s.A * rho_vec[:, :, None])
-    Minv = admm._segment_inverse(torch.diag_embed(s.p_diag + admm.SIGMA) + K)
+    Minv = spd_inverse_plain(torch.diag_embed(s.p_diag + admm.SIGMA) + K)
     n, m = data.q.shape[-1], data.l.shape[-1]
     zero = lambda k: torch.zeros((B, k), device=dev)  # noqa: E731
     return [a.contiguous() for a in (s.A, Minv, s.q, s.l, s.u, rho_vec, zero(n), zero(m), zero(m))]
@@ -1056,7 +1057,7 @@ def check_admm_dense(dev) -> list:
 
     args = random_dense_problem(B_SMALL, 21, 30, seed=3, dev=dev)
     for iters in (1, 7):  # as tests/test_kernels.py: the random problem grows with iterations
-        before = K.admm_iterations.launches
+        before = launches()
         out = K.admm_iterations(*args, iters=iters)
         torch.cuda.synchronize()
         ref = K.admm_iterations_plain(*args, iters=iters)
@@ -1064,7 +1065,7 @@ def check_admm_dense(dev) -> list:
         print(f"admm_iterations (dense) B={B_SMALL} A=(21, 30), n padded to 32, iters={iters}: "
               f"max|k-plain| x/z/y = {[(a - b).abs().max().item() for a, b in zip(out, ref)]}, "
               f"entries outside atol 2e-4 rtol 2e-4: {outside}")
-        if any(outside) or K.admm_iterations.launches != before + 1 or out[0].shape != ref[0].shape:
+        if any(outside) or launches(before)["admm_iterations"] != 1 or out[0].shape != ref[0].shape:
             fail(f"admm_iterations at A (21, 30) ({iters} iterations): outside the bar "
                  f"{outside}, or not one launch, or x of shape {tuple(out[0].shape)}")
     return rows
@@ -1230,36 +1231,42 @@ def healthy(state) -> bool:
     return bool(torch.isfinite(state.plant.q).all() and ((z > 0.1) & (z < 0.6)).all())
 
 
-def _all_kernels():
-    from convex_mpc_tpu_torch.mpc.kernels import (
-        adapt_check, adapt_rho, admm_iterations, admm_iterations_structured)
-    from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
-    from convex_mpc_tpu_torch.sim.tick_fused import run_ticks_fused
+# the port's kernel entry points, in the order the ``launches`` lines print them
+KERNELS = ("spd_inverse", "admm_iterations_structured", "run_ticks_fused", "admm_iterations",
+           "adapt_check", "adapt_rho")
 
-    return {"spd_inverse": spd_inverse, "admm_iterations_structured": admm_iterations_structured,
-            "run_ticks_fused": run_ticks_fused, "admm_iterations": admm_iterations,
-            "adapt_check": adapt_check, "adapt_rho": adapt_rho}
+
+def launches(since: dict | None = None) -> dict:
+    """Each kernel entry point's launches counted in this process
+    (``utils.profiling``'s ``launches.<entry>``, which ``cuda_build.launch``
+    counts), less those of ``since``, an earlier reading."""
+    from convex_mpc_tpu_torch.utils import profiling
+
+    c = profiling.counts()
+    return {n: c.get(f"launches.{n}", 0) - (since or {}).get(n, 0) for n in KERNELS}
 
 
 def tool_device(tool: str, cpu: bool) -> torch.device:
     """The device of a port tool that times the card: the card, or with ``cpu``
     the CPU (every kernel's plain version). Raises ``SystemExit`` without a
     card rather than falling back. Prints the card's name and power limit
-    (``device: cpu`` on the CPU) and sets every kernel's launch counter to 0."""
+    (``device: cpu`` on the CPU) and sets the counters of ``utils.profiling``
+    to 0: the tool owns the process."""
+    from convex_mpc_tpu_torch.utils import profiling
+
     if not cpu and not torch.cuda.is_available():
         raise SystemExit(f"{tool}: no CUDA device (it does not fall back to the CPU)")
     print(f"device: {'cpu' if cpu else card_identity()}", flush=True)
-    for k in _all_kernels().values():
-        k.launches = 0
+    profiling.reset_counts()
     return torch.device("cpu" if cpu else "cuda")
 
 
-def print_launches() -> dict:
-    """Print and return every kernel's launches since the counters were last
-    set to 0, as the ``launches:`` line the port's entry points print."""
-    launches = {n: k.launches for n, k in _all_kernels().items()}
-    print("launches: " + json.dumps(launches), flush=True)
-    return launches
+def print_launches(since: dict | None = None) -> dict:
+    """Print and return every kernel's launches (less ``since``), as the
+    ``launches:`` line the port's entry points print."""
+    out = launches(since)
+    print("launches: " + json.dumps(out), flush=True)
+    return out
 
 
 def sync(dev) -> None:
@@ -1291,22 +1298,20 @@ def best_seconds(fn, dev, outer: int = 3) -> float:
 
 
 def drive(name, cycle, args, state, cycles, kw, profile=None):
-    """``cycles`` timed cycles with every kernel's launch counter set to 0 just
-    before and read just after. Returns (state, stats)."""
-    kernels = _all_kernels()
+    """``cycles`` timed cycles, with every kernel's launches counted over them.
+    Returns (state, stats)."""
     if profile is not None:
         kw = dict(kw, profile=profile)
     iters = []
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
+    before = launches()
     t0 = time.perf_counter()
     for _ in range(cycles):
         state, log = cycle(*args, state, **kw)
         iters.append(log.solver_iters)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
+    counted = launches(before)
     it = torch.cat(iters).float().cpu().numpy()
     B = state.plant.q.shape[0]
     out = {"batch": B, "window_cycles": cycles, "solves_per_s": B * cycles / wall,
@@ -1314,12 +1319,12 @@ def drive(name, cycle, args, state, cycles, kw, profile=None):
            "iters_p99": float(np.percentile(it, 99))}
     if profile:
         out.update({f"{k}_ms": profile[k] / cycles * 1e3 for k in ("update", "solve", "apply")})
-    out.update(launches_per_cycle={n: v / cycles for n, v in launches.items()},
+    out.update(launches_per_cycle={n: v / cycles for n, v in counted.items()},
                healthy=healthy(state))
     print(f"{name} window: " + json.dumps(out))
     if not out["healthy"]:
         fail(f"{name}: the batch is not healthy after the window (non-finite or z outside (0.1, 0.6))")
-    out["launches"] = launches
+    out["launches"] = counted
     return state, out
 
 
@@ -1491,7 +1496,6 @@ def scenario_paths(dev) -> dict:
     from convex_mpc_tpu_torch.sim import scenarios as S
 
     dyn = D.build_dyn(device=dev)
-    kernels = _all_kernels()
     out = {}
     for name, B, build, kw, settle, window in SCENARIO_BATCHES:
         batch = build(S, dyn, B)
@@ -1504,12 +1508,12 @@ def scenario_paths(dev) -> dict:
         settled = batch
         prof = {} if kw["adaptive"] else None
         wkw = dict(kw, profile=prof) if prof is not None else kw
-        for k in kernels.values():
-            k.launches = 0
+        before = launches()
         t0 = time.perf_counter()
         batch, metrics, logs = S.simulate_batch(dyn, batch, window, collect_logs=True, **wkw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counted = launches(before)
         it = logs.solver_iters.float().cpu().numpy()
         res = {"batch": B, "window_cycles": window, "solves_per_s": B * window / wall,
                "cycle_ms": wall / window * 1e3, "iters_mean": float(it.mean()),
@@ -1520,7 +1524,7 @@ def scenario_paths(dev) -> dict:
                "wz_err_mean": float(metrics["wz_err"].mean())}
         if prof:
             res.update({f"{k}_ms": prof[k] / window * 1e3 for k in ("update", "solve", "apply")})
-        res["launches_per_cycle"] = {n: k.launches / window for n, k in kernels.items()}
+        res["launches_per_cycle"] = {n: v / window for n, v in counted.items()}
         res["healthy"] = healthy(batch.state)
         print(f"{name} window: " + json.dumps(res))
         if not res["healthy"]:
@@ -1529,10 +1533,9 @@ def scenario_paths(dev) -> dict:
         need = ["admm_iterations"] if not kw["adaptive"] else (
             ["spd_inverse", "admm_iterations_structured"]
             + (["run_ticks_fused"] if kw.get("use_fused_ticks") else []))
-        if min(kernels[n].launches for n in need) <= 0:
-            fail(f"{name}: a kernel of its path was never launched: "
-                 f"{ {n: k.launches for n, k in kernels.items()} }")
-        res["launches"] = {n: k.launches for n, k in kernels.items()}
+        if min(counted[n] for n in need) <= 0:
+            fail(f"{name}: a kernel of its path was never launched: {counted}")
+        res["launches"] = counted
         cycle = E.mpc_cycle_batch if kw["adaptive"] else E.mpc_cycle_fixed
         ckw = {k: v for k, v in kw.items() if k != "adaptive"}
         card_vs_cpu(f"{name} batch", cycle, dyn,
@@ -1556,18 +1559,20 @@ def _bitwise(a, b) -> bool:
 
 
 def _counted(need, fn):
-    """``fn()`` with every kernel's launch counter set to 0 just before it and
-    read just after; fails unless each kernel of ``need`` launched."""
-    kernels = _all_kernels()
+    """``fn()`` with the counters of ``utils.profiling`` set to 0 just before
+    it (a tool run in it sets them to 0 itself, in ``tool_device``) and every
+    kernel's launches read just after; fails unless each kernel of ``need``
+    launched."""
+    from convex_mpc_tpu_torch.utils import profiling
+
     torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
+    profiling.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in kernels.items()}
-    if any(launches[n] <= 0 for n in need):
-        fail(f"a kernel of the path was never launched: {launches}")
-    return out, launches
+    counted = launches()
+    if any(counted[n] <= 0 for n in need):
+        fail(f"a kernel of the path was never launched: {counted}")
+    return out, counted
 
 
 def scale_out_path(dev, settled) -> None:
@@ -1602,14 +1607,14 @@ def scale_out_path(dev, settled) -> None:
 
         ref = step(batch)
         fn = M.sharded_rollout_fn(mesh, step, lambda a: {"height": a[3].plant.q[:, 2]})
-        (out, metrics), launches = _counted(
+        (out, metrics), counted = _counted(
             ("spd_inverse", "admm_iterations_structured"), lambda: fn(local))
         h = out[3].plant.q[:, 2]
         local_mean = h.sum() / h.shape[0]
         same, mean_ok = _bitwise(out, ref), torch.equal(metrics["height"], local_mean)
         print("scale-out step: " + json.dumps({
             "bitwise_equal_to_unsharded": same, "mean_height": float(metrics["height"]),
-            "local_mean": float(local_mean), "launches": launches, "healthy": healthy(out[3])}))
+            "local_mean": float(local_mean), "launches": counted, "healthy": healthy(out[3])}))
         if not (same and mean_ok and healthy(out[3])):
             fail("scale-out: the sharded step differs from the unsharded step, or its "
                  "all-reduced mean from the local mean")
@@ -1646,9 +1651,9 @@ def measurement_path(dev, settled) -> dict:
     for fused in (False, True):
         names = ("spd_inverse", "admm_iterations_structured") + (
             ("run_ticks_fused",) if fused else ())
-        b1, launches = _counted(names, lambda: rt.b1_headline(dev, 20.833, windows=1,
+        b1, counted = _counted(names, lambda: rt.b1_headline(dev, 20.833, windows=1,
                                                                fused=fused))
-        print(f"realtime B=1, use_fused_ticks={fused}: " + json.dumps(dict(b1, launches=launches)))
+        print(f"realtime B=1, use_fused_ticks={fused}: " + json.dumps(dict(b1, launches=counted)))
         if not b1["healthy"]:
             fail(f"realtime B=1 (use_fused_ticks={fused}): the scenario is not healthy")
 
@@ -1827,9 +1832,9 @@ def tools_path() -> None:
         for name, argv, need in TOOL_RUNS:
             t0 = time.perf_counter()
             tool = importlib.import_module(name)
-            out, launches = _counted(need, lambda: tool.main(argv))
+            out, counted = _counted(need, lambda: tool.main(argv))
             print(f"phase 12: {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
-                  f"launches {json.dumps(launches)}", flush=True)
+                  f"launches {json.dumps(counted)}", flush=True)
             if name == "torch_multi_config_bench":
                 rates = {k: v["upright_rate"] for k, v in out["configs"].items()}
                 if not (MULTI_CONFIG_KEYS <= set(out) and len(rates) == 8

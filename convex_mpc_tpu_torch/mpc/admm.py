@@ -8,8 +8,8 @@ Port of ``convex_mpc_tpu/mpc/admm.py``:
   the structured ADMM kernel, then per chunk the residual / stall check
   (``kernels.adapt_check``) and the small-force accept, bounded rho descent,
   rescue and gate steps (``kernels.adapt_rho``), one kernel each on the
-  card (counted ``adapt_fused``), refactor-on-demand of the scenarios whose
-  rho moved (``_refactor``), and
+  card (``adapt_check`` counts ``adapt_fused`` there), refactor-on-demand
+  of the scenarios whose rho moved (``_refactor``), and
   the certified active-set polish ladder, with the optional snap-first
   proposal that sends only the scenarios it cannot certify through a
   compacted ladder (``snap_first``) and the ``debug`` prints. The JAX
@@ -37,7 +37,7 @@ from convex_mpc_tpu_torch._device import const
 from convex_mpc_tpu_torch.mpc import kernels
 from convex_mpc_tpu_torch.mpc.condensed import StructuredQp
 from convex_mpc_tpu_torch.mpc.qp import QpData
-from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse
+from convex_mpc_tpu_torch.ops.chol_kernel import spd_inverse, spd_inverse_plain
 from convex_mpc_tpu_torch.ops.linalg import inv_small_unrolled
 from convex_mpc_tpu_torch.utils.interop import tree_map
 from convex_mpc_tpu_torch.utils.profiling import count, span
@@ -303,7 +303,7 @@ class KktSetup(NamedTuple):
     is_eq: torch.Tensor  # (B, m) equality rows
     w_vec: torch.Tensor  # (B, m) per-row rho weights (eq_scale on equality rows)
     P_mat: torch.Tensor  # (B, nz, nz)
-    K: torch.Tensor  # (B, nz, nz) block-diagonal friction Gram
+    K_blocks: torch.Tensor  # (B, nb, 3, 3) the diagonal blocks of the friction Gram K
     K_box_diag: torch.Tensor  # (B, nz)
 
 
@@ -321,18 +321,22 @@ def kkt_setup(p_dense, q, C, box_diag, l, u, sigma: float, eq_scale: float,
     w_fr, w_box = w_vec[:, :m_fr], w_vec[:, m_fr:]
     P_mat = s.p_dense + sigma * torch.eye(nz, dtype=dtype, device=dev)
     K_blocks = torch.einsum("bnfr,bnf,bnfs->bnrs", s.C, w_fr.reshape(B, nb, 4), s.C)
-    eye_nb = torch.eye(nb, dtype=dtype, device=dev)
-    K = (K_blocks[:, :, :, None, :] * eye_nb[None, :, None, :, None]).reshape(B, nz, nz)
-    return KktSetup(s=s, is_eq=is_eq, w_vec=w_vec, P_mat=P_mat, K=K,
+    return KktSetup(s=s, is_eq=is_eq, w_vec=w_vec, P_mat=P_mat, K_blocks=K_blocks,
                     K_box_diag=w_box * s.box_diag * s.box_diag)
 
 
 def kkt_matrix(setup: KktSetup, rho) -> torch.Tensor:
-    """M(rho) (B, nz, nz), rho (B,)."""
-    nz = setup.K.shape[-1]
-    eye = torch.eye(nz, dtype=setup.K.dtype, device=setup.K.device)
-    return (setup.P_mat + rho[:, None, None] * setup.K
-            + (rho[:, None] * setup.K_box_diag)[:, :, None] * eye)
+    """M(rho) (B, nz, nz), rho (B,): P_mat, plus rho K on the diagonal 3 x 3
+    blocks, plus rho K_box_diag on the diagonal, added in that order per
+    element, so M is bit for bit the dense sum P_mat + rho K + diag(rho
+    K_box_diag) (whose zero terms off the blocks turn a -0 of P_mat into +0,
+    as the + 0.0 does here)."""
+    B, nb = setup.K_blocks.shape[:2]
+    M = setup.P_mat + 0.0  # a new tensor, written in place below
+    blocks = torch.diagonal(M.view(B, nb, 3, nb, 3), dim1=1, dim2=3)  # (B, 3, 3, nb)
+    blocks += (rho[:, None, None, None] * setup.K_blocks).permute(0, 2, 3, 1)
+    torch.diagonal(M, dim1=1, dim2=2).add_(rho[:, None] * setup.K_box_diag)
+    return M
 
 
 def kkt_at_rho(qp: StructuredQp, rho, sigma: float = 1e-6, eq_scale: float = 1e3,
@@ -364,7 +368,7 @@ def _refactor(setup: KktSetup, rho, Minv: torch.Tensor, changed, k: int) -> torc
     count("kkt_rows", k)
     with span("mpc.solve.factor"):
         idx = torch.nonzero_static(changed, size=k)[:, 0]  # k is known: no wait for the size
-        sub = setup._replace(P_mat=setup.P_mat[idx], K=setup.K[idx],
+        sub = setup._replace(P_mat=setup.P_mat[idx], K_blocks=setup.K_blocks[idx],
                              K_box_diag=setup.K_box_diag[idx])
         return Minv.index_copy_(0, idx, spd_inverse(kkt_matrix(sub, rho[idx])))
 
@@ -559,8 +563,6 @@ def solve_adaptive(
                 at_boundary=((it + 1) % adapt_stride) == 0, rescue=(it + 1) == rescue_chunk,
                 max_adapts=max_adapts, stall_tol=stall_tol, small_force_scale=small_force_scale,
                 log_ratio=log_ratio, rho_accept_max=rho_accept_max)
-            if dev.type == "cuda":
-                count("adapt_fused")
         # one host read per chunk: how many rho moved? and does any scenario go on?
         with span("mpc.solve.read.flags"):
             count("host_reads.flags")
@@ -718,15 +720,6 @@ def _unscaled_residuals(qp, s, is_eq, x_hat, z_hat, y_hat, eps_abs, eps_rel):
     return torch.maximum(rp_eq / EPS_EQ_ABS, rp_in / ep_in), rd / EPS_DUAL_ABS
 
 
-def _segment_inverse(M):
-    """Cholesky inverse of each SPD matrix, NaN where the factorization fails."""
-    L, info = torch.linalg.cholesky_ex(M)
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand_as(M)
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    Minv = torch.matmul(Linv.transpose(-1, -2), Linv)
-    return torch.where((info != 0)[:, None, None], float("nan"), Minv)
-
-
 def _solve_impl(
     qp: QpData,
     state: AdmmState,
@@ -790,7 +783,7 @@ def _solve_impl(
         M = P_mat + rho[:, None, None] * K
         if K_box is not None:
             M = M + torch.diag_embed(rho[:, None] * K_box)
-        Minv = _segment_inverse(M)
+        Minv = spd_inverse_plain(M)
         rho_vec = rho[:, None] * w_vec
         done = 0
         while done < per_seg:

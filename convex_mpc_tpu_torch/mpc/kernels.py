@@ -38,22 +38,23 @@ which XLA fuses inside the JAX solve's ``while_loop``, as two launches of
   accept, the bounded rho descent, rescue and gate, with the counts of
   moved rho and of open scenarios that the host reads.
 
-Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises. Each C launcher picks its launch from its own
-shared-memory layout and raises where none fits the card: no other route is
-taken in its place. :func:`structured_cluster_shape` and
-:func:`dense_cluster_shape` read that choice back.
+Each wrapper checks its operands and takes the plain version for CPU
+tensors only; a CUDA tensor launches the kernel (``utils.cuda_build.launch``)
+or raises. Each C launcher picks its launch from its own shared-memory
+layout and raises where none fits the card: no other route is taken in its
+place. :func:`structured_cluster_shape` and :func:`dense_cluster_shape` read
+that choice back.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from convex_mpc_tpu_torch._device import const
 from convex_mpc_tpu_torch.utils import cuda_build
+from convex_mpc_tpu_torch.utils.profiling import count
 
 
 def _next_pow2(x: int) -> int:
@@ -115,42 +116,15 @@ def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0
     return x, z, y
 
 
-def _cluster_shape(name: str, *sizes: int, outputs: int = 2) -> tuple[int, ...]:
-    """(CTAs per cluster, clusters resident at once on this card, ...) of the
-    launch that ``csrc/<name>.cu`` makes for ``sizes``, as its C launcher
-    (``<name>_shape``, ``outputs`` int results) chooses them."""
-    fn = getattr(cuda_build.load(name), f"{name}_shape")
-    fn.argtypes = [ctypes.c_int] * len(sizes) + [ctypes.POINTER(ctypes.c_int)] * outputs
-    fn.restype = ctypes.c_int
-    out = [ctypes.c_int(0) for _ in range(outputs)]
-    cuda_build.check(fn(*sizes, *(ctypes.byref(v) for v in out)), f"{name} shape")
-    return tuple(v.value for v in out)
-
-
 def structured_cluster_shape(nb: int) -> tuple[int, int]:
     """The structured kernel's cluster for nb friction blocks: the smallest
     of at least 2 CTAs whose share of Minv fits one CTA (2 at nb = 64 and 96,
     3 at 128), and how many are resident at once."""
-    return _cluster_shape("admm_structured", nb)
+    return cuda_build.query("admm_structured", "admm_structured_shape", (nb,), (ctypes.c_int,) * 2)
 
 
-def _launch(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, iters, sigma, alpha):
-    cuda_build.require_cuda("admm_iterations_structured", C, box_diag, Minv, q, l, u,
-                            rho_vec, x0, z0, y0)
-    B, nb = C.shape[0], C.shape[1]
-    xo = torch.empty_like(x0)
-    zo = torch.empty_like(z0)
-    yo = torch.empty_like(y0)
-    fn = cuda_build.load("admm_structured").admm_structured_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    stream = torch.cuda.current_stream(C.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0, xo, zo, yo)]
-    err = fn(*ptrs, B, nb, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
-    cuda_build.check(err, "admm_iterations_structured")
-    return xo, zo, yo
+_STRUCTURED = cuda_build.Kernel("admm_iterations_structured", "admm_structured",
+                                "admm_structured_f32", pointers=13, ints=3, floats=3)
 
 
 def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
@@ -159,26 +133,17 @@ def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
     B, nb = C.shape[0], C.shape[1]
     nz, m = 3 * nb, 7 * nb
     args = (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0)
-    shapes = [(B, nb, 4, 3), (B, nz), (B, nz, nz), (B, nz), (B, m), (B, m), (B, m),
-              (B, nz), (B, m), (B, m)]
-    for name, t, s in zip("C box_diag Minv q l u rho_vec x0 z0 y0".split(), args, shapes):
-        if tuple(t.shape) != s:
-            raise ValueError(f"admm_iterations_structured: {name} has shape {tuple(t.shape)}, expected {s}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"admm_iterations_structured: {name} must be f32, got {t.dtype}")
-        if t.device != C.device:
-            raise ValueError("admm_iterations_structured: all operands on one device")
-    if C.device.type == "cpu":
+    vz, vm = (B, nz), (B, m)
+    dev = cuda_build.operands(
+        "admm_iterations_structured", C=(C, (B, nb, 4, 3)), box_diag=(box_diag, vz),
+        Minv=(Minv, (B, nz, nz)), q=(q, vz), l=(l, vm), u=(u, vm), rho_vec=(rho_vec, vm),
+        x0=(x0, vz), z0=(z0, vm), y0=(y0, vm))
+    if dev.type == "cpu":
         return admm_iterations_structured_plain(*args, iters=iters, sigma=sigma, alpha=alpha)
-    if C.device.type != "cuda":
-        raise ValueError(f"admm_iterations_structured runs on CPU or CUDA tensors, got {C.device}")
     args = [t.contiguous() for t in args]
-    out = _launch(*args, iters, sigma, alpha)
-    admm_iterations_structured.launches += 1
+    out = tuple(torch.empty_like(t) for t in args[-3:])
+    cuda_build.launch(_STRUCTURED, args + list(out), (B, nb, iters), (sigma, alpha, 1.0 - alpha))
     return out
-
-
-admm_iterations_structured.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -278,68 +243,36 @@ def _workspace(device) -> torch.Tensor:
     return const(("adapt_ws",), device, lambda d: torch.zeros(8, dtype=torch.int32, device=d))
 
 
-_ADAPT_FNS: dict = {}
-
-
-def _adapt_fn(name: str, pointers: int, ints: int, floats: int):
-    """``csrc/admm_adapt.cu``'s entry point ``name``, typed once."""
-    fn = _ADAPT_FNS.get(name)
-    if fn is None:
-        fn = getattr(cuda_build.load("admm_adapt"), name)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                       + [ctypes.c_float] * floats + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _ADAPT_FNS[name] = fn
-    return fn
-
-
-def _check_adapt(what: str, operands: dict, shapes: dict) -> torch.device:
-    """Raise unless each operand has its shape and dtype ((shape, dtype) in
-    ``shapes``) and all lie on one CPU or CUDA device; returns the device."""
-    dev = next(iter(operands.values())).device
-    for name, t in operands.items():
-        shape, dtype = shapes[name]
-        if t.shape != shape or t.dtype != dtype or t.device != dev:
-            raise ValueError(f"{what}: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected {dtype} {shape} on {dev}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {dev}")
-    return dev
+_CHECK = cuda_build.Kernel("adapt_check", "admm_adapt", "adapt_check_f32", pointers=19, ints=3,
+                          floats=5)
+_RHO = cuda_build.Kernel("adapt_rho", "admm_adapt", "adapt_rho_f32", pointers=17, ints=8, floats=4)
 
 
 def adapt_check(P, C, box_diag, q, d, x, x_prev, z, y, rho, converged, conv_iter,
                 iters_done: int, eps_abs: float, eps_rel: float, rho_accept_max: float,
                 stall_tol: float, stall_dual_cap: float):
     """The residual and convergence check after a chunk (see
-    :func:`adapt_check_plain`); one kernel launch on the card."""
+    :func:`adapt_check_plain`); one kernel launch on the card, counted
+    ``adapt_fused`` there."""
     B, nb = C.shape[0], C.shape[1]
     nz, m = 3 * nb, 7 * nb
-    f32, vz, vm, vb = torch.float32, (B, nz), (B, m), (B,)
-    ops = dict(P=P, C=C, box_diag=box_diag, q=q, d=d, x=x, x_prev=x_prev, z=z, y=y, rho=rho,
-               converged=converged, conv_iter=conv_iter)
-    dev = _check_adapt("adapt_check", ops, dict(
-        P=((B, nz, nz), f32), C=((B, nb, 4, 3), f32), box_diag=(vz, f32), q=(vz, f32),
-        d=(vz, f32), x=(vz, f32), x_prev=(vz, f32), z=(vm, f32), y=(vm, f32), rho=(vb, f32),
-        converged=(vb, torch.bool), conv_iter=(vb, torch.int32)))
+    vz, vm, vb = (B, nz), (B, m), (B,)
+    spec = dict(P=(P, (B, nz, nz)), C=(C, (B, nb, 4, 3)), box_diag=(box_diag, vz), q=(q, vz),
+                d=(d, vz), x=(x, vz), x_prev=(x_prev, vz), z=(z, vm), y=(y, vm), rho=(rho, vb),
+                converged=(converged, vb, torch.bool), conv_iter=(conv_iter, vb, torch.int32))
+    dev = cuda_build.operands("adapt_check", **spec)
+    ops = [t for t, *_ in spec.values()]
     consts = (eps_abs, eps_rel, rho_accept_max, stall_tol, stall_dual_cap)
     if dev.type == "cpu":
-        return adapt_check_plain(*ops.values(), iters_done, *consts)
-    pr, dr, step = torch.empty((3, B), dtype=f32, device=dev)
+        return adapt_check_plain(*ops, iters_done, *consts)
+    pr, dr, step = torch.empty((3, B), dtype=torch.float32, device=dev)
     conv_out = torch.empty_like(converged)
     ints = torch.empty((B + 1,), dtype=torch.int32, device=dev)  # conv_iter, then the open count
     it_out, n_open = ints[:B], ints[B:]
-    fn = _adapt_fn("adapt_check_f32", 19, 3, 5)
-    args = [t.contiguous() for t in ops.values()]  # alive until the launch returns
-    ptrs = [t.data_ptr() for t in args]
-    err = fn(*ptrs, pr.data_ptr(), dr.data_ptr(), step.data_ptr(), conv_out.data_ptr(),
-             it_out.data_ptr(), _workspace(dev).data_ptr(), n_open.data_ptr(), B, nb,
-             iters_done, *consts, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "adapt_check")
-    adapt_check.launches += 1
+    cuda_build.launch(_CHECK, [t.contiguous() for t in ops] + [
+        pr, dr, step, conv_out, it_out, _workspace(dev), n_open], (B, nb, iters_done), consts)
+    count("adapt_fused")
     return pr, dr, step, conv_out, it_out, n_open
-
-
-adapt_check.launches = 0
 
 
 def adapt_rho(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d, nu: int,
@@ -349,13 +282,12 @@ def adapt_rho(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d, nu
     """The rho step after a chunk's polish decision (see
     :func:`adapt_rho_plain`); one kernel launch on the card."""
     B, nz = x.shape
-    f32, vb = torch.float32, (B,)
-    ops = dict(pr=pr, dr=dr, step=step, rho=rho, x=x, d=d, converged=converged, pol_ok=pol_ok,
-               conv_iter=conv_iter, d_count=d_count)
-    dev = _check_adapt("adapt_rho", ops, dict(
-        pr=(vb, f32), dr=(vb, f32), step=(vb, f32), rho=(vb, f32), x=((B, nz), f32),
-        d=((B, nz), f32), converged=(vb, torch.bool), pol_ok=(vb, torch.bool),
-        conv_iter=(vb, torch.int32), d_count=(vb, torch.int32)))
+    vb = (B,)
+    spec = dict(pr=(pr, vb), dr=(dr, vb), step=(step, vb), rho=(rho, vb), x=(x, (B, nz)),
+                d=(d, (B, nz)), converged=(converged, vb, torch.bool),
+                pol_ok=(pol_ok, vb, torch.bool), conv_iter=(conv_iter, vb, torch.int32),
+                d_count=(d_count, vb, torch.int32))
+    dev = cuda_build.operands("adapt_rho", **spec)
     if not 0 <= nu <= nz:
         raise ValueError(f"adapt_rho: nu = {nu} outside 0..{nz}")
     host = (nu, polish, apply_polish, at_boundary, rescue, max_adapts)
@@ -363,23 +295,14 @@ def adapt_rho(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d, nu
     if dev.type == "cpu":
         return adapt_rho_plain(pr, dr, step, rho, converged, conv_iter, d_count, pol_ok, x, d,
                                *host, *consts)
-    rho_out = torch.empty((B,), dtype=f32, device=dev)
+    rho_out = torch.empty((B,), dtype=torch.float32, device=dev)
     dc_out, it_out = torch.empty((2, B), dtype=torch.int32, device=dev)
     conv_out, changed = torch.empty((2, B), dtype=torch.bool, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    fn = _adapt_fn("adapt_rho_f32", 17, 8, 4)
-    args = [t.contiguous() for t in ops.values()]  # alive until the launch returns
-    ptrs = [t.data_ptr() for t in args]
-    err = fn(*ptrs, rho_out.data_ptr(), dc_out.data_ptr(), it_out.data_ptr(),
-             conv_out.data_ptr(), changed.data_ptr(), _workspace(dev)[4:].data_ptr(),
-             flags.data_ptr(), B, nz, *(int(v) for v in host), *consts,
-             torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "adapt_rho")
-    adapt_rho.launches += 1
+    cuda_build.launch(_RHO, [t.contiguous() for t, *_ in spec.values()] + [
+        rho_out, dc_out, it_out, conv_out, changed, _workspace(dev)[4:], flags], (B, nz, *host),
+        consts)
     return rho_out, dc_out, changed, conv_out, it_out, flags
-
-
-adapt_rho.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +328,6 @@ def admm_iterations_plain(A, Minv, q, l, u, rho, x0, z0, y0, iters: int,
     return x, z, y
 
 
-_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration
-
 # admm_dense.cu's instances, by the index its launcher reports: where a CTA's
 # rows of A and Minv are read from
 DENSE_INSTANCES = ("A and Minv on chip", "A through a TMA ring once an iteration, Minv on chip",
@@ -419,7 +340,7 @@ def dense_cluster_shape(m: int, n: int) -> tuple[int, int, int, int]:
     once, dynamic shared bytes per CTA, instance: an index into
     :data:`DENSE_INSTANCES`); 0 CTAs, 0 resident, 0 bytes and instance -1
     where no instance fits one cluster."""
-    return _cluster_shape("admm_dense", m, n, outputs=4)
+    return cuda_build.query("admm_dense", "admm_dense_shape", (m, n), (ctypes.c_int,) * 4)
 
 
 def _pad_dense(A, Minv, q, l, u, rho, x0, z0, y0):
@@ -435,27 +356,8 @@ def _pad_dense(A, Minv, q, l, u, rho, x0, z0, y0):
             z0, y0)
 
 
-def _launch_dense(A, Minv, q, l, u, rho, x0, z0, y0, iters, sigma, alpha):
-    cuda_build.require_cuda("admm_iterations", A, Minv, q, l, u, rho, x0, z0, y0)
-    B, m, n = A.shape
-    if n % 4 or A.data_ptr() % 16 or Minv.data_ptr() % 16:
-        raise ValueError(f"admm_iterations kernel: n = {n} must be a multiple of 4 "
-                         f"(admm_iterations pads it) and A, Minv 16-byte aligned (the "
-                         f"kernel's float4 loads)")
-    xo, zo, yo = torch.empty_like(x0), torch.empty_like(z0), torch.empty_like(y0)
-    fn = cuda_build.load("admm_dense").admm_dense_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (A, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo)]
-    err = fn(*ptrs, B, m, n, iters, f32(sigma), f32(alpha), f32(1.0 - alpha), stream)
-    if err == _INVALID_CONFIGURATION:
-        raise RuntimeError(f"admm_iterations: no instance of admm_dense.cu fits one cluster "
-                           f"on this card at A ({m}, {n}), Minv ({n}, {n}) (cudaError {err})")
-    cuda_build.check(err, "admm_iterations")
-    return xo, zo, yo
+_DENSE = cuda_build.Kernel("admm_iterations", "admm_dense", "admm_dense_f32", pointers=12, ints=4,
+                           floats=3)
 
 
 def admm_iterations(A, Minv, q, l, u, rho, x0, z0, y0, iters: int, sigma: float = 1e-6,
@@ -463,23 +365,19 @@ def admm_iterations(A, Minv, q, l, u, rho, x0, z0, y0, iters: int, sigma: float 
     """``iters`` dense-A ADMM iterations; returns (x, z, y)."""
     B, m, n = A.shape
     args = (A, Minv, q, l, u, rho, x0, z0, y0)
-    shapes = [(B, m, n), (B, n, n), (B, n), (B, m), (B, m), (B, m), (B, n), (B, m), (B, m)]
-    for name, t, s in zip("A Minv q l u rho x0 z0 y0".split(), args, shapes):
-        if tuple(t.shape) != s:
-            raise ValueError(f"admm_iterations: {name} has shape {tuple(t.shape)}, expected {s}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"admm_iterations: {name} must be f32, got {t.dtype}")
-        if t.device != A.device:
-            raise ValueError("admm_iterations: all operands on one device")
-    if A.device.type == "cpu":
+    vn, vm = (B, n), (B, m)
+    dev = cuda_build.operands(
+        "admm_iterations", A=(A, (B, m, n)), Minv=(Minv, (B, n, n)), q=(q, vn), l=(l, vm),
+        u=(u, vm), rho=(rho, vm), x0=(x0, vn), z0=(z0, vm), y0=(y0, vm))
+    if dev.type == "cpu":
         return admm_iterations_plain(*args, iters=iters, sigma=sigma, alpha=alpha)
-    if A.device.type != "cuda":
-        raise ValueError(f"admm_iterations runs on CPU or CUDA tensors, got {A.device}")
     if n % 4:
         args = _pad_dense(*args)
-    x, z, y = _launch_dense(*[t.contiguous() for t in args], iters, sigma, alpha)
-    admm_iterations.launches += 1
+    args = [t.contiguous() for t in args]
+    if args[0].data_ptr() % 16 or args[1].data_ptr() % 16:
+        raise ValueError("admm_iterations kernel: A and Minv must be 16-byte aligned (the "
+                         "kernel's float4 loads)")
+    x, z, y = (torch.empty_like(t) for t in args[-3:])
+    cuda_build.launch(_DENSE, args + [x, z, y], (B, m, args[0].shape[-1], iters),
+                      (sigma, alpha, 1.0 - alpha), what=f"admm_iterations at A ({m}, {n})")
     return x[:, :n].contiguous(), z, y
-
-
-admm_iterations.launches = 0

@@ -48,25 +48,9 @@ def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[:, None, None], float("nan"), out)
 
 
-_lib = None
+_KERNEL = cuda_build.Kernel("spd_inverse", "spd_inverse", "spd_inverse_f32", pointers=3, ints=2,
+                            floats=0)
 _shapes: dict[tuple[int, int], tuple[int, int, int, int]] = {}
-
-
-def _library() -> ctypes.CDLL:
-    """The loaded ``spd_inverse`` library, its entry points typed once."""
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("spd_inverse")
-        lib.spd_inverse_shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                                          ctypes.POINTER(ctypes.c_longlong),
-                                          ctypes.POINTER(ctypes.c_int),
-                                          ctypes.POINTER(ctypes.c_int)]
-        lib.spd_inverse_shape.restype = ctypes.c_int
-        lib.spd_inverse_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                                                 ctypes.c_void_p]
-        lib.spd_inverse_f32.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def spd_inverse_shape(n: int) -> tuple[int, int, int, int]:
@@ -82,48 +66,35 @@ def spd_inverse_shape(n: int) -> tuple[int, int, int, int]:
     key = (torch.cuda.current_device(), n)
     shape = _shapes.get(key)
     if shape is None:
-        out = [ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_int(0), ctypes.c_int(0)]
-        cuda_build.check(_library().spd_inverse_shape(n, *map(ctypes.byref, out)),
-                         f"spd_inverse shape (n={n})")
-        shape = _shapes[key] = tuple(v.value for v in out)
+        c_int = ctypes.c_int
+        shape = _shapes[key] = cuda_build.query("spd_inverse", "spd_inverse_shape", (n,),
+                                                (c_int, ctypes.c_longlong, c_int, c_int))
     return shape
 
 
 def _launch(A: torch.Tensor, out: torch.Tensor) -> None:
-    cuda_build.require_cuda("spd_inverse", A, out)
+    """The kernel alone: ``out`` = the inverse of each matrix of ``A``."""
     B, n = A.shape[0], A.shape[1]
-    _, scratch_floats, _, _ = spd_inverse_shape(n)
-    scratch = None
-    if scratch_floats:
-        scratch = torch.empty((B, scratch_floats), dtype=A.dtype, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = _library().spd_inverse_f32(A.data_ptr(), out.data_ptr(),
-                                     None if scratch is None else scratch.data_ptr(), B, n, stream)
-    cuda_build.check(err, f"spd_inverse (n={n})")
+    floats = spd_inverse_shape(n)[1]
+    scratch = torch.empty((B, floats), dtype=A.dtype, device=A.device) if floats else None
+    cuda_build.launch(_KERNEL, (A, out, scratch), (B, n), what=f"spd_inverse (n={n})")
 
 
 def spd_inverse(A: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse of (B, n, n) f32, any n > 0."""
     if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0:
         raise ValueError(f"spd_inverse expects (B, n, n) with n > 0, got {tuple(A.shape)}")
-    if A.dtype != torch.float32:
-        raise TypeError(f"spd_inverse is f32-only, got {A.dtype}")
-    if A.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"spd_inverse runs on CPU or CUDA tensors, got {A.device}")
+    dev = cuda_build.operands("spd_inverse", A=(A, A.shape, torch.float32))
     B, n = A.shape[0], A.shape[1]
     count("spd_inverse.ops", B * n ** 3)
     pad = grid_order(n) ** 3 - n ** 3
     if pad:
         count("spd_inverse.padded", B)
         count("spd_inverse.pad_ops", B * pad)
-    if A.device.type == "cpu":
+    if dev.type == "cpu":
         return spd_inverse_plain(A)
     A = A.contiguous()
     out = torch.empty_like(A)
-    if A.shape[0] > 0:
+    if B > 0:
         _launch(A, out)
-        spd_inverse.launches += 1
     return out
-
-
-spd_inverse.launches = 0

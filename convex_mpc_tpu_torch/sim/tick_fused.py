@@ -34,7 +34,6 @@ import ctypes
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from convex_mpc_tpu_torch._device import F32
@@ -664,55 +663,32 @@ def _plain(carry_bf, batch_bf, cst, steps, sim_dt, alpha):
     return [bf(x) for x in fin], [torch.movedim(logs[k], -1, 0) for k in _LOG_KEYS]
 
 
-_N_PTRS = 44
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("tick_window")
-        lib.tick_window_f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
-            ctypes.c_float] * 7 + [ctypes.c_void_p]
-        lib.tick_window_f32.restype = ctypes.c_int
-        lib.tick_window_shape.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.tick_window_shape.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def tick_window_shape(B: int) -> tuple[int, int, int]:
     """The launch ``csrc/tick_window.cu`` makes for B scenarios on the current
     card: (threads per block, blocks, blocks resident per SM). A block is
     one scenario's four lanes."""
-    threads, blocks, resident = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    cuda_build.check(_library().tick_window_shape(B, ctypes.byref(threads), ctypes.byref(blocks),
-                                                  ctypes.byref(resident)), "tick_window shape")
-    return threads.value, blocks.value, resident.value
+    return cuda_build.query("tick_window", "tick_window_shape", (B,), (ctypes.c_int,) * 3)
+
+
+_KERNEL = cuda_build.Kernel("run_ticks_fused", "tick_window", "tick_window_f32", pointers=44,
+                            ints=2, floats=7, packed=True)
 
 
 def _launch(carry_bf, batch_bf, cst, steps, sim_dt, alpha):
+    """The kernel alone, on the operands :func:`_inputs` makes: (final carry,
+    logs (B, steps, ...)) as :func:`_plain` returns them."""
     carry_bf = [x.contiguous() for x in carry_bf]
     batch_bf = [x.contiguous() for x in batch_bf]
     consts = torch.cat([x.reshape(-1) for f, x in zip(TickConsts._fields, cst)
                         if f != "m_legs4"]).contiguous()
-    ints = [carry_bf[2]]
-    cuda_build.require_cuda("run_ticks_fused", *carry_bf[:2], *carry_bf[3:], *batch_bf, consts,
-                            ints=ints)
     B = carry_bf[0].shape[0]
     dev = carry_bf[0].device
     out_carry = [torch.empty_like(x) for x in carry_bf]
     e = lambda *s, dt=F32: torch.empty((B, steps) + s, dtype=dt, device=dev)  # noqa: E731
     logs = [e(12), e(19), e(4, 3), e(4, 3), e(4, 3), e(4, dt=torch.int32)]
-    tensors = [*carry_bf, *batch_bf, consts, *out_carry, *logs]
-    assert len(tensors) == _N_PTRS
-    ptrs = (ctypes.c_void_p * _N_PTRS)(*[x.data_ptr() for x in tensors])
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().tick_window_f32(
-        ctypes.cast(ptrs, ctypes.c_void_p), B, steps, f32(sim_dt), f32(alpha), f32(L.KP),
-        f32(L.KD), f32(L.GROUND_Z + 1e-3), f32(L.FOOT_RADIUS), f32(L.EARLY_CONTACT_FZ), stream)
-    cuda_build.check(err, "run_ticks_fused")
+    cuda_build.launch(_KERNEL, [*carry_bf, *batch_bf, consts, *out_carry, *logs], (B, steps),
+                      (sim_dt, alpha, L.KP, L.KD, L.GROUND_Z + 1e-3, L.FOOT_RADIUS,
+                       L.EARLY_CONTACT_FZ))
     return out_carry, logs
 
 
@@ -724,8 +700,9 @@ def _window(dyn, gait, contact, cmd, traj, u0, plant0, leg0, yaw_cont, yaw_prev,
     carry_bf, batch_bf = _inputs(gait, contact, cmd, traj, u0, plant0, leg0, yaw_cont,
                                  yaw_prev, vel_filt0, t0)
     cst = make_consts(dyn, tau_max)
-    if any(x.device != u0.device for x in (*carry_bf, *batch_bf, cst.lim)):
-        raise ValueError("run_ticks_fused: all operands on one device")
+    cuda_build.operands("run_ticks_fused", lim=(cst.lim, cst.lim.shape), **{
+        f: (x, x.shape, torch.int32 if f == "last_mask" else F32)
+        for f, x in zip(TickCarry._fields + TickBatch._fields, (*carry_bf, *batch_bf))})
     fin, logs = run(carry_bf, batch_bf, cst, steps_per_mpc, sim_dt,
                     E._filter_alpha(vel_filter_hz, sim_dt))
     q, dq, last_mask, takeoff_time, swing_p0, swing_td, yc, yp, vfilt, t = fin
@@ -753,13 +730,4 @@ def run_ticks_fused(dyn, gait, contact, cmd, traj, u0, plant0, leg0, yaw_cont, y
     for CPU tensors, the CUDA kernel for CUDA tensors."""
     args = (dyn, gait, contact, cmd, traj, u0, plant0, leg0, yaw_cont, yaw_prev, vel_filt0, t0,
             steps_per_mpc, tau_max, sim_dt, vel_filter_hz)
-    if u0.device.type == "cpu":
-        return run_ticks_fused_plain(*args)
-    if u0.device.type != "cuda":
-        raise ValueError(f"run_ticks_fused runs on CPU or CUDA tensors, got {u0.device}")
-    out = _window(*args, run=_launch)
-    run_ticks_fused.launches += 1
-    return out
-
-
-run_ticks_fused.launches = 0
+    return _window(*args, run=_plain if u0.device.type == "cpu" else _launch)

@@ -6,6 +6,13 @@ the checkout (listed in ``.gitignore``) under a name that carries the hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source is rebuilt, and loaded with ``ctypes``. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
+
+Every kernel wrapper binds its launcher through the same three calls:
+:func:`operands` checks the wrapper's inputs on either route (the plain
+version for CPU tensors, the kernel for CUDA tensors), :func:`launch` calls
+a :class:`Kernel`'s C launcher on the current stream, checks the error it
+returns and counts the launch (``launches.<name>`` in ``utils.profiling``),
+and :func:`query` asks a launcher's C side which launch it makes.
 """
 
 from __future__ import annotations
@@ -17,8 +24,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from convex_mpc_tpu_torch.utils.profiling import count
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -39,6 +50,7 @@ KERNEL_FLAGS = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -102,18 +114,96 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def require_cuda(what: str, *tensors, ints=()) -> None:
-    """Raise unless every operand is a contiguous tensor on a CUDA device:
-    f32 for ``tensors``, int32 for ``ints`` (the masks a kernel takes)."""
-    for x, dtype in [(x, torch.float32) for x in tensors] + [(x, torch.int32) for x in ints]:
-        if x.device.type != "cuda":
-            raise ValueError(f"{what}: the kernel takes CUDA tensors, got one on {x.device}")
-        if x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{what}: the kernel takes contiguous {dtype} tensors, got "
-                             f"{x.dtype}{'' if x.is_contiguous() else ' (not contiguous)'}")
+_INVALID_CONFIGURATION = 9  # cudaErrorInvalidConfiguration: no launch fits the card
 
 
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C launcher."""
+    if err == _INVALID_CONFIGURATION:
+        raise RuntimeError(f"{what}: no launch of the kernel fits this card (cudaError {err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def _fn(lib: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """``csrc/<lib>.cu``'s C function ``symbol`` returning an int, typed once."""
+    fn = _fns.get((lib, symbol))
+    if fn is None:
+        fn = getattr(load(lib), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(lib, symbol)] = fn
+    return fn
+
+
+class Kernel(NamedTuple):
+    """A C launcher ``symbol`` of ``csrc/<lib>.cu``: ``symbol(pointers...,
+    ints..., floats..., stream)`` returning a cudaError_t, the pointers one
+    array of ``void*`` where ``packed``. ``name`` is the wrapper's: it names
+    the launch in errors and in its counter ``launches.<name>``."""
+
+    name: str
+    lib: str
+    symbol: str
+    pointers: int
+    ints: int
+    floats: int
+    packed: bool = False
+
+
+def operands(what: str, **specs) -> torch.device:
+    """Check a wrapper's operands, each given as ``name=(tensor, shape)`` (f32)
+    or ``name=(tensor, shape, dtype)``: ValueError unless each has its shape
+    and all lie on one CPU or CUDA device, TypeError unless each has its
+    dtype. Returns the device."""
+    dev = None
+    for name, (t, shape, *dtype) in specs.items():
+        dtype = dtype[0] if dtype else torch.float32
+        dev = t.device if dev is None else dev
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{what}: all operands on one device, {name} is on {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {dev}")
+    return dev
+
+
+def launch(k: Kernel, tensors, ints=(), floats=(), what: str | None = None) -> None:
+    """Launch ``k`` on ``tensors`` (contiguous CUDA tensors, or None for a
+    null pointer), ``ints`` and ``floats`` (each rounded to f32) on the
+    current stream of the tensors' device; raise, naming ``what`` (default
+    ``k.name``), on a CPU tensor or on the error it returns; count the
+    launch. It never falls back to the plain version: the wrappers route."""
+    what = what or k.name
+    live = [t for t in tensors if t is not None]
+    for t in live:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: the kernel takes CUDA tensors, got one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: the kernel takes contiguous tensors")
+    if (len(tensors), len(ints), len(floats)) != (k.pointers, k.ints, k.floats):
+        raise ValueError(f"{what}: {k.symbol} takes {k[3:6]} pointers, ints and floats, got "
+                         f"{(len(tensors), len(ints), len(floats))}")
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    if k.packed:
+        array = (ctypes.c_void_p * len(ptrs))(*ptrs)  # alive until the call returns
+        ptrs = [ctypes.cast(array, ctypes.c_void_p)]
+    fn = _fn(k.lib, k.symbol, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * k.ints
+             + [ctypes.c_float] * k.floats + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(live[0].device).cuda_stream
+    check(fn(*ptrs, *(int(v) for v in ints), *(float(np.float32(v)) for v in floats), stream),
+          what)
+    count(f"launches.{k.name}")
+
+
+def query(lib: str, symbol: str, sizes, outputs) -> tuple:
+    """What ``csrc/<lib>.cu``'s C function ``symbol(sizes..., outputs...)``
+    reports: ``sizes`` ints in, one value of each ctypes type in ``outputs``
+    out (the launch its launcher makes for those sizes on the current card)."""
+    fn = _fn(lib, symbol, [ctypes.c_int] * len(sizes) + [ctypes.POINTER(t) for t in outputs])
+    out = [t(0) for t in outputs]
+    check(fn(*sizes, *map(ctypes.byref, out)), f"{symbol}{tuple(sizes)}")
+    return tuple(v.value for v in out)

@@ -101,7 +101,7 @@ def main(argv=None) -> list[dict]:
         raise SystemExit("torch_trot_demo: no CUDA device (pass --cpu for the plain CPU path)")
     dev = torch.device("cpu" if args.cpu else "cuda")
 
-    from chip_smoke import _all_kernels
+    from chip_smoke import launches
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.models import dynamics as D
     from convex_mpc_tpu_torch.sim import engine as E
@@ -127,9 +127,7 @@ def main(argv=None) -> list[dict]:
 
     print(f"[demo] device={dev.type}  simulating {args.seconds:.1f}s "
           f"({n_cycles} MPC cycles) ...", flush=True)
-    kernels = _all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    before = launches()
     t0 = time.perf_counter()
     q_diag = (TUNED_CONFIG if args.tuned else DEFAULT_CONFIG).mpc.q_diag
     if args.adaptive:
@@ -156,7 +154,7 @@ def main(argv=None) -> list[dict]:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
+    counted = launches(before)
     print(f"[demo] done in {wall:.1f}s wall ({args.seconds / wall:.2f}x realtime)")
 
     x = _host(logs.ticks.x_vec).reshape(-1, 12)
@@ -178,7 +176,7 @@ def main(argv=None) -> list[dict]:
     print(f"[demo] solver: mean {it.mean():.0f} iters/cycle, "
           f"converged {(it < args.solver_iters).mean() * 100:.0f}% of cycles")
     print("[demo] phases: " + json.dumps(rows))
-    print("[demo] launches: " + json.dumps(launches), flush=True)
+    print("[demo] launches: " + json.dumps(counted), flush=True)
 
     if args.plots:
         _plots(args, dev, dyn, gait, sched, state, logs, x, q_diag)

@@ -72,9 +72,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     ADAPT_RHO_CASES, ADAPT_SETTINGS, MAX_FLIPS, adapt_problem, adapt_rho_kwargs,
     adapt_rho_problem, attractor_kkt, dense_f64_errors, dense_problem, dense_problem_at,
-    first_kkt_setup, fixed_kwargs, full_form_problem, hetero_battery, random_dense_problem, rounding_flips,
-    spd_batch, spd_kkt_errors, spd_nonspd, start_batch, structured_problem, tick_battery,
-    window_misses)
+    first_kkt_setup, fixed_kwargs, full_form_problem, hetero_battery, launches,
+    random_dense_problem, rounding_flips, spd_batch, spd_kkt_errors, spd_nonspd, start_batch,
+    structured_problem, tick_battery, window_misses)
 
 from convex_mpc_tpu_torch.mpc import admm as TA  # noqa: E402
 from convex_mpc_tpu_torch.mpc import kernels as TK  # noqa: E402
@@ -98,10 +98,10 @@ def _check_spd(A, bad=()):
     """spd_inverse on A: one launch, the matrices in ``bad`` all NaN, the
     others finite and within the bars of the plain version."""
     n = A.shape[-1]
-    before = TCK.spd_inverse.launches
+    before = launches()
     out = TCK.spd_inverse(A)
     torch.cuda.synchronize()
-    assert TCK.spd_inverse.launches == before + 1
+    assert launches(before)["spd_inverse"] == 1
     ref = TCK.spd_inverse_plain(A)
     keep = torch.ones(A.shape[0], dtype=torch.bool, device="cuda")
     keep[list(bad)] = False
@@ -190,10 +190,10 @@ def test_spd_inverse_shape():
 def test_admm_kernel_matches_plain(iters, nb):
     _need_cuda()
     args = structured_problem(8, nb, seed=11, dev=torch.device("cuda"))
-    before = TK.admm_iterations_structured.launches
+    before = launches()
     out = TK.admm_iterations_structured(*args, iters=iters)
     torch.cuda.synchronize()
-    assert TK.admm_iterations_structured.launches == before + 1
+    assert launches(before)["admm_iterations_structured"] == 1
     ref = TK.admm_iterations_structured_plain(*args, iters=iters)
     for a, b in zip(out, ref):
         assert torch.equal(a, b), (a - b).abs().max().item()
@@ -202,10 +202,10 @@ def test_admm_kernel_matches_plain(iters, nb):
 def _tick_window_pair(B, steps, seed, duty=0.6):
     """The kernel's window (one launch) and the plain version's on one battery."""
     args = tick_battery(B, seed=seed, dev=torch.device("cuda"), duty=duty)
-    before = TTF.run_ticks_fused.launches
+    before = launches()
     out = TTF.run_ticks_fused(*args, steps, 45.0, 1e-3, 30.0)
     torch.cuda.synchronize()
-    assert TTF.run_ticks_fused.launches == before + 1
+    assert launches(before)["run_ticks_fused"] == 1
     return args, out, TTF.run_ticks_fused_plain(*args, steps, 45.0, 1e-3, 30.0)
 
 
@@ -247,10 +247,10 @@ def test_tick_window_shape():
 def test_admm_dense_kernel_matches_plain(iters):
     _need_cuda()
     args = dense_problem(8, 64, seed=11, dev=torch.device("cuda"))
-    before = TK.admm_iterations.launches
+    before = launches()
     out = TK.admm_iterations(*args, iters=iters)
     torch.cuda.synchronize()
-    assert TK.admm_iterations.launches == before + 1
+    assert launches(before)["admm_iterations"] == 1
     ref = TK.admm_iterations_plain(*args, iters=iters)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
@@ -262,11 +262,11 @@ def test_horizon24_cycle_card_vs_cpu():
     kw = TCFG.engine_kwargs_batched(TCFG.EngineConfig(mpc=TCFG.MpcConfig(horizon=24)))
     dyn, *batch = start_batch(8, torch.device("cuda"), 24)
     cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
-    before = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
+    before = launches()
     s_gpu, _ = TE.mpc_cycle_batch(dyn, *batch, **kw)
     torch.cuda.synchronize()
-    after = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
-    assert after[0] > before[0] and after[1] > before[1]
+    after = launches(before)
+    assert after["spd_inverse"] > 0 and after["admm_iterations_structured"] > 0
     s_cpu, _ = TE.mpc_cycle_batch(cpu(dyn), *[cpu(a) for a in batch], **kw)
     du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
     assert du0 < 2.0, du0  # Newtons
@@ -296,10 +296,10 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
     csize, resident, smem, inst = TK.dense_cluster_shape(640, 384)
     assert csize == 8 and resident >= 1 and 116224 < smem <= 232448 and inst == 0
     assert 0 < TK.dense_cluster_shape(448, 192)[2] <= 116224
-    before = TK.admm_iterations.launches
+    before = launches()
     out = TK.admm_iterations(*args, iters=iters)
     torch.cuda.synchronize()
-    assert TK.admm_iterations.launches == before + 1
+    assert launches(before)["admm_iterations"] == 1
     ref = TK.admm_iterations_plain(*args, iters=iters)
     d = dense_f64_errors(out, ref, args, iters)
     assert d["within_bar"], d
@@ -307,10 +307,10 @@ def test_admm_dense_kernel_full_form_matches_plain(iters):
 
 def _check_dense(form, args, iters):
     """One launch of the dense iterations, within the bar of its form."""
-    before = TK.admm_iterations.launches
+    before = launches()
     out = TK.admm_iterations(*args, iters=iters)
     torch.cuda.synchronize()
-    assert TK.admm_iterations.launches == before + 1
+    assert launches(before)["admm_iterations"] == 1
     ref = TK.admm_iterations_plain(*args, iters=iters)
     if form == "condensed":
         for a, b in zip(out, ref):
@@ -366,10 +366,10 @@ def test_admm_dense_kernel_pads_n(iters):
     version."""
     _need_cuda()
     args = random_dense_problem(8, 21, 30, seed=3, dev=torch.device("cuda"))
-    before = TK.admm_iterations.launches
+    before = launches()
     out = TK.admm_iterations(*args, iters=iters)
     torch.cuda.synchronize()
-    assert TK.admm_iterations.launches == before + 1
+    assert launches(before)["admm_iterations"] == 1
     ref = TK.admm_iterations_plain(*args, iters=iters)
     assert tuple(out[0].shape) == (8, 30)
     for a, b in zip(out, ref):
@@ -400,10 +400,10 @@ def test_full_form_cycle_card_vs_cpu(horizon):
     batch = (gait, contact, sched, state)
     kw = fixed_kwargs(horizon, "full")
     cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
-    before = TK.admm_iterations.launches
+    before = launches()
     s_gpu, _ = TE.mpc_cycle_fixed(dyn, *batch, **kw)
     torch.cuda.synchronize()
-    assert TK.admm_iterations.launches > before
+    assert launches(before)["admm_iterations"] > 0
     s_cpu, _ = TE.mpc_cycle_fixed(cpu(dyn), *[cpu(a) for a in batch], **kw)
     du0 = (s_gpu.u0.cpu() - s_cpu.u0).abs().max().item()
     assert du0 < 2.0, du0  # Newtons
@@ -458,7 +458,7 @@ def test_profiled_cycle_spans_are_host_only():
     state, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)  # builds, warms
     torch.cuda.synchronize()
     profiling.reset_counts()
-    before = TCK.spd_inverse.launches
+    before = launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
@@ -472,7 +472,7 @@ def test_profiled_cycle_spans_are_host_only():
     assert Trace(events, 1, 1.0).unmatched_device == 0
     c = profiling.counts()
     assert c["cycles"] == 1
-    assert c["kkt_factorizations"] + c["polish_solves"] == TCK.spd_inverse.launches - before
+    assert c["kkt_factorizations"] + c["polish_solves"] == launches(before)["spd_inverse"]
 
 
 @pytest.mark.parametrize("horizon", [32, 16, 10])
@@ -495,7 +495,7 @@ def test_subset_refactor_bitwise_on_card(horizon):
     Minv = TA._factorize(setup, rho)
     whole = TA._factorize(setup, rho_new)
     torch.cuda.synchronize()
-    before = TCK.spd_inverse.launches
+    before = launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = TA._refactor(setup, rho_new, Minv, changed, k)
@@ -503,7 +503,7 @@ def test_subset_refactor_bitwise_on_card(horizon):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert out is Minv
-    assert TCK.spd_inverse.launches == before + 1
+    assert launches(before)["spd_inverse"] == 1
     assert torch.isnan(out[rows[0]]).all()
     assert torch.isfinite(out[torch.arange(B, device=dev) != rows[0]]).all()
     torch.testing.assert_close(out, whole, rtol=0, atol=0, equal_nan=True)
@@ -524,10 +524,10 @@ def test_adapt_check_kernel_bitwise_plain(B, nb):
     nan_row = 3 if B >= 7 else None
     p = adapt_problem(B, nb, 13, torch.device("cuda"), nan_row=nan_row)
     kw = dict(iters_done=100, eps_abs=2.0, eps_rel=0.8, **ADAPT_SETTINGS)
-    before = TK.adapt_check.launches
+    before = launches()
     out = TK.adapt_check(*p.values(), **kw)
     torch.cuda.synchronize()
-    assert TK.adapt_check.launches == before + 1
+    assert launches(before)["adapt_check"] == 1
     _bitwise(out, TK.adapt_check_plain(*p.values(), **kw))
     if nan_row is not None:
         assert torch.isnan(out[0][nan_row]) and torch.isnan(out[1][nan_row])
@@ -542,10 +542,10 @@ def test_adapt_rho_kernel_bitwise_plain(B, case):
     in every chunk kind, with a NaN row; its two counts exact."""
     _need_cuda()
     v = adapt_rho_problem(B, 17, torch.device("cuda"), nan_row=5 if B >= 7 else None)
-    before = TK.adapt_rho.launches
+    before = launches()
     out = TK.adapt_rho(*v.values(), **adapt_rho_kwargs(case))
     torch.cuda.synchronize()
-    assert TK.adapt_rho.launches == before + 1
+    assert launches(before)["adapt_rho"] == 1
     _bitwise(out, TK.adapt_rho_plain(*v.values(), **adapt_rho_kwargs(case)))
     assert out[5].tolist() == [int(out[2].sum()), int((~out[3]).sum())]
 
@@ -604,11 +604,12 @@ def test_solve_adaptive_h16_card_vs_cpu():
     solve = dict(max_iter=kw["solver_iters"], check_every=kw["check_every"],
                  box_tail=12 * kw["n"], stall_tol=kw["stall_tol"], polish=kw["polish"],
                  nu=TC.NU)
-    before = (TK.adapt_check.launches, TK.adapt_rho.launches)
+    before = launches()
     s_gpu = TA.solve_adaptive(data, state_b.solver, **solve)
     torch.cuda.synchronize()
-    chunks = TK.adapt_check.launches - before[0]
-    assert chunks > 0 and TK.adapt_rho.launches - before[1] == chunks
+    counted = launches(before)
+    chunks = counted["adapt_check"]
+    assert chunks > 0 and counted["adapt_rho"] == chunks
     cpu = lambda tree: interop.tree_map(lambda x: x.cpu(), tree)  # noqa: E731
     s_cpu = TA.solve_adaptive(cpu(data), cpu(state_b.solver), **solve)
     du0 = (s_gpu.x[:, :12].cpu() - s_cpu.x[:, :12]).abs().max().item()
@@ -653,13 +654,13 @@ def test_profiled_cycle_adapt_fused_without_gemv():
         state, _ = TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
     torch.cuda.synchronize()
     profiling.reset_counts()
-    before = TK.adapt_check.launches
+    before = launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         TE.mpc_cycle_batch(dyn, gait, contact, sched, state, **kw)
         torch.cuda.synchronize()
     c = profiling.counts()
-    assert c["adapt_fused"] == c["host_reads.flags"] == TK.adapt_check.launches - before == 40, c
+    assert c["adapt_fused"] == c["host_reads.flags"] == launches(before)["adapt_check"] == 40, c
     ops = _device_ops_by_span(prof.profiler.kineto_results.events())
     in_adapt = [n for n, sp in ops if sp == "mpc.solve.adapt"]
     assert sum("adapt_check" in n for n in in_adapt) == 40

@@ -20,13 +20,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_parity import to_np, to_port  # noqa: E402
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import launches  # noqa: E402
 
 from convex_mpc_tpu.control import gait as JG
 from convex_mpc_tpu.models import dynamics as JD
 from convex_mpc_tpu.sim import engine as JE
 from convex_mpc_tpu.sim import physics as JP
-from convex_mpc_tpu_torch.mpc import kernels as TK
-from convex_mpc_tpu_torch.ops import chol_kernel as TCK
 from convex_mpc_tpu_torch.sim import engine as TE
 from convex_mpc_tpu_torch.utils import interop
 from convex_mpc_tpu_torch.utils.config import DEFAULT_CONFIG, engine_kwargs_batched
@@ -67,9 +67,9 @@ def test_config_kwargs_and_short_run(carried):
     run launches no CUDA kernel."""
     dyn, args = carried
     kw = engine_kwargs_batched(DEFAULT_CONFIG)
-    before = (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches)
+    before = launches()
     state, logs = TE.simulate_batched(to_port(dyn), *[to_port(a) for a in args], 2, **kw)
-    assert (TCK.spd_inverse.launches, TK.admm_iterations_structured.launches) == before
+    assert not any(launches(before).values())
     assert tuple(logs.ticks.q.shape) == (2, 2, 20, 19)
     assert tuple(logs.solver_iters.shape) == (2, 2)
     z = state.plant.q[:, 2].numpy()
@@ -97,18 +97,3 @@ def test_interop_roundtrip(carried):
     for a, b in zip(interop.tree_leaves(back), jax.tree_util.tree_leaves(state)):
         np.testing.assert_array_equal(a, np.asarray(b))
 
-
-def test_kernel_launchers_refuse_cpu_tensors():
-    """The CUDA kernel entry points raise on CPU tensors: no silent fallback
-    below the wrappers (the wrappers pick the plain version by device)."""
-    A = torch.eye(64).expand(2, 64, 64).contiguous()
-    with pytest.raises(ValueError, match="CUDA"):
-        TCK._launch(A, torch.empty_like(A))
-    nb = 4
-    C = torch.zeros(1, nb, 4, 3)
-    v = torch.zeros(1, 3 * nb)
-    r = torch.ones(1, 7 * nb)
-    with pytest.raises(ValueError, match="CUDA"):
-        TK._launch(C, v, torch.zeros(1, 3 * nb, 3 * nb), v, r, r, r, v, r, r, 1, 1e-6, 1.6)
-    with pytest.raises(ValueError):
-        TCK.spd_inverse(A.to("meta"))

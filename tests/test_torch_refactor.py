@@ -3,7 +3,8 @@
 in place equal the whole batch's ``_factorize`` at the new rho, bit for bit,
 for any set of changed rows, with NaN confined to a non-SPD row; and two
 closed-loop production cycles at B = 4, horizon 16, equal those made with
-every refactor on the whole batch. CPU, small B."""
+every refactor on the whole batch; and ``kkt_matrix``, which assembles M from
+K's 3 x 3 blocks, equals the dense sum bit for bit. CPU, small B."""
 
 from __future__ import annotations
 
@@ -39,9 +40,30 @@ def kkt_pieces(nz: int, seed: int = 0) -> admm.KktSetup:
     nb = nz // 3
     blk = torch.randn((B, nb, 3, 3), generator=g)
     blk = blk @ blk.transpose(-1, -2)
-    K = (blk[:, :, :, None, :] * torch.eye(nb)[None, :, None, :, None]).reshape(B, nz, nz)
     box = torch.rand((B, nz), generator=g) + 0.5
-    return admm.KktSetup(s=None, is_eq=None, w_vec=None, P_mat=P, K=K, K_box_diag=box)
+    return admm.KktSetup(s=None, is_eq=None, w_vec=None, P_mat=P, K_blocks=blk, K_box_diag=box)
+
+
+@pytest.mark.parametrize("nz", [120, 192, 384])
+def test_kkt_matrix_equals_the_dense_sum(nz):
+    """M from K's 3 x 3 blocks is bit for bit (signs of zeros too) the dense
+    P_mat + rho K + diag(rho K_box_diag), K built from the same blocks, with
+    -0 and +0 entries in P_mat and zero blocks in K."""
+    setup = kkt_pieces(nz, seed=3)
+    P = setup.P_mat.clone()
+    P[:, ::7, ::5] = -0.0
+    P[:, 1::11, ::3] = 0.0
+    blk = setup.K_blocks.clone()
+    blk[:, ::4] = -0.0
+    setup = setup._replace(P_mat=P, K_blocks=blk)
+    rho = torch.tensor([0.1, 1e-3, 2e-4, 0.1, 5e-4])
+    nb = nz // 3
+    K = (blk[:, :, :, None, :] * torch.eye(nb)[None, :, None, :, None]).reshape(B, nz, nz)
+    box = (rho[:, None] * setup.K_box_diag)[:, :, None] * torch.eye(nz)
+    dense = P + rho[:, None, None] * K + box
+    M = admm.kkt_matrix(setup, rho)
+    assert torch.equal(M, dense)
+    assert torch.equal(M.view(torch.int32), dense.view(torch.int32))
 
 
 MASKS = {

@@ -57,6 +57,8 @@ def test_refuses_what_is_not_a_batch_of_square_matrices():
         TCK.spd_inverse(torch.zeros(2, 0, 0))
     with pytest.raises(TypeError):
         TCK.spd_inverse(torch.zeros(2, 4, 4, dtype=torch.float64))
+    with pytest.raises(ValueError):  # neither a CPU nor a CUDA tensor
+        TCK.spd_inverse(torch.eye(64).expand(2, 64, 64).to("meta"))
 
 
 @pytest.fixture(scope="module")

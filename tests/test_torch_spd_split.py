@@ -454,22 +454,28 @@ def test_refused_launch_raises_with_n(monkeypatch):
     """A launch the C side refuses (no cluster of 2 resident:
     cudaErrorInvalidConfiguration) raises, naming n; nothing falls back."""
 
-    class Lib:
-        def spd_inverse_shape(self, n, *refs):  # the C side's answer at n = 384, 0 resident
+    def c_function(lib, symbol, argtypes):  # the C side's answers at n = 384, 0 resident
+        def spd_inverse_shape(n, *refs):
             for ref, v in zip(refs, (216576, 0, 0, 2)):
                 ref._obj.value = v
             return 0
 
-        def spd_inverse_f32(self, *args):
-            return 9  # cudaErrorInvalidConfiguration
+        return spd_inverse_shape if symbol == "spd_inverse_shape" else lambda *args: 9
 
-    monkeypatch.setattr(TCK, "_library", lambda: Lib())
+    class CudaLike:  # what the launch reads of a CUDA tensor
+        device, shape = torch.device("cuda", 0), (2, 384, 384)
+
+        def is_contiguous(self):
+            return True
+
+        def data_ptr(self):
+            return 0
+
+    monkeypatch.setattr(cuda_build, "_fn", c_function)
     monkeypatch.setattr(TCK, "_shapes", {})
-    monkeypatch.setattr(cuda_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: type("S", (), {"cuda_stream": 0})())
-    A = torch.zeros((2, 384, 384))
     assert TCK.spd_inverse_shape(384) == (216576, 0, 0, 2)
     with pytest.raises(RuntimeError, match=r"n=384"):
-        TCK._launch(A, torch.empty_like(A))
+        TCK._launch(CudaLike(), CudaLike())

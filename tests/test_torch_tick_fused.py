@@ -34,6 +34,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_parity import assert_close_scaled, t, to_port  # noqa: E402
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import launches  # noqa: E402
 from test_tick_fused import _battery  # noqa: E402
 from test_torch_ticks import _Traj, _assert_window, _jax_window, _port_window  # noqa: E402
 
@@ -84,9 +86,9 @@ _jax_window_jit = jax.jit(_jax_window, static_argnames=("steps",))
 def test_run_ticks_fused_matches_jax(B, seed, steps, rel):
     """Two seeds of a 20-tick window at B = 5, and one tick at B = 4."""
     args = _battery(B=B, seed=seed)
-    before = TTF.run_ticks_fused.launches
+    before = launches()
     _assert_window(_jax_window_jit(args, steps=steps), _port_fused(args, steps), rel)
-    assert TTF.run_ticks_fused.launches == before  # CPU tensors: the plain version
+    assert not any(launches(before).values())  # CPU tensors: the plain version
 
 
 def test_fused_window_matches_port_tick_loop():
@@ -115,18 +117,6 @@ def test_fused_window_duty_one():
     _assert_window(_jax_window_jit(tuple(args), steps=20), fused, 5e-3)
     to_np = lambda tree: jax.tree.map(lambda x: x.numpy(), tree)  # noqa: E731
     _assert_window(to_np(_port_window(args, 20)), fused, 5e-3)
-
-
-def test_run_ticks_fused_refuses_cpu_launch():
-    """The kernel's launcher takes CUDA tensors only: no silent fallback
-    below the wrapper."""
-    args = _battery(B=2, seed=0)
-    dyn, gait, contact, cmd, traj, u0, plant, leg, yc, yp, vf, t0 = args
-    ptraj = _Traj(t(traj.pos_des_world), t(traj.vel_des_world))
-    carry, batch = TTF._inputs(to_port(gait), to_port(contact), to_port(cmd), ptraj, t(u0),
-                               to_port(plant), to_port(leg), t(yc), t(yp), t(vf), t(t0))
-    with pytest.raises(ValueError, match="CUDA"):
-        TTF._launch(carry, batch, TTF.make_consts(to_port(dyn), 45.0), 20, 1e-3, 0.17)
 
 
 @pytest.fixture(scope="module")

@@ -55,15 +55,13 @@ def best_window(step, s, dev, cycles: int, windows: int):
 
     Returns (best window seconds, state, per-cycle aux outputs of the timed
     windows, kernel launches per timed cycle)."""
-    from chip_smoke import _all_kernels
+    from chip_smoke import launches
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     for _ in range(cycles):
         s, aux = step(s)
     sync()
-    kernels = _all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    before = launches()
     best, aux_log = float("inf"), []
     for _ in range(windows):
         t0 = time.perf_counter()
@@ -72,8 +70,8 @@ def best_window(step, s, dev, cycles: int, windows: int):
             aux_log.append(aux)
         sync()
         best = min(best, time.perf_counter() - t0)
-    launches = {n: k.launches / (windows * cycles) for n, k in kernels.items()}
-    return best, s, aux_log, launches
+    per_cycle = {n: v / (windows * cycles) for n, v in launches(before).items()}
+    return best, s, aux_log, per_cycle
 
 
 def main(cpu: bool = False, batch: int | None = None,

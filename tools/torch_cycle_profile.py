@@ -37,7 +37,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from chip_smoke import _all_kernels, card_identity, print_launches, start_batch  # noqa: E402
+from chip_smoke import card_identity, launches, print_launches, start_batch  # noqa: E402
 from convex_mpc_tpu_torch.mpc import admm  # noqa: E402
 from convex_mpc_tpu_torch.sim import engine as E  # noqa: E402
 from convex_mpc_tpu_torch.utils import profiling  # noqa: E402
@@ -70,8 +70,7 @@ def main(argv=None) -> dict:
     for _ in range(args.settle):
         state, _ = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state, **kw)
     torch.cuda.synchronize()
-    for k in _all_kernels().values():
-        k.launches = 0
+    before = launches()
 
     qd = torch.as_tensor(QD, dtype=torch.float32, device=dev)
     iters = []
@@ -131,7 +130,7 @@ def main(argv=None) -> dict:
     print(ka.table(sort_by="self_cpu_time_total", row_limit=args.top))
     print("-- top operators by device time --")
     print(ka.table(sort_by="self_cuda_time_total", row_limit=args.top))
-    out["launches"] = print_launches()
+    out["launches"] = print_launches(before)
     return out
 
 

@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     dev = torch.device("cpu" if args.cpu else "cuda")
 
     import qp_oracle as oracle
-    from chip_smoke import _all_kernels
+    from chip_smoke import launches
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.control import leg as LG
     from convex_mpc_tpu_torch.control import reference as R
@@ -115,9 +115,7 @@ def main(argv=None) -> int:
     # Phase 1: run the closed loop, capturing each cycle's exact QP instance
     # and the engine's applied force, on the host. Phase 2: solve all captured
     # QPs with the independent native f64 oracle in a worker pool.
-    kernels = _all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    before = launches()
     n_cycles = int(round(args.seconds * 50))  # one cycle = 20 ms sim
     qps, u0s, iters, heights, warms = [], [], [], [], []
     jacs, masks = [], []
@@ -167,7 +165,7 @@ def main(argv=None) -> int:
         heights.append(float(state_b.plant.q[0, 2]))
         if (cyc + 1) % 100 == 0:
             print(f"  loop: {cyc + 1}/{n_cycles} cycles  z={heights[-1]:.3f}", flush=True)
-    launches = {n: k.launches for n, k in kernels.items()}
+    counted = launches(before)
 
     refs = [x64[192:204] for x64, _ in solve_all(qps)]
 
@@ -227,7 +225,7 @@ def main(argv=None) -> int:
                 print(f"  cycle {w:4d} t={w * 0.02:5.2f}s  err {errs[w]:6.2f}%  "
                       f"iters {iters[w]}  sum_fz_ref {fzs[w]:7.1f} N  "
                       f"tau_err {te[w]:5.2f}% of range")
-    print("launches: " + json.dumps(launches), flush=True)
+    print("launches: " + json.dumps(counted), flush=True)
     # adaptive path (iteration escalation) must leave ZERO cycles over budget;
     # the fixed path tolerates up to 2% of cycles (documented round-1 gap)
     ok = n_over == 0 if args.adaptive else (errs > 2.0).mean() < 0.02

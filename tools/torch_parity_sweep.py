@@ -23,7 +23,6 @@ Runs on the CUDA card unless ``--cpu`` is given (the plain versions):
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 from pathlib import Path
 
@@ -92,14 +91,12 @@ def main(argv=None) -> int:
         raise SystemExit("torch_parity_sweep: no CUDA device (pass --cpu for the plain CPU path)")
     dev = torch.device("cpu" if args.cpu else "cuda")
 
-    from chip_smoke import _all_kernels
+    from chip_smoke import launches, print_launches
     from convex_mpc_tpu_torch.utils.native_oracle import solve_all
 
     scs, qps = zip(*instances(args.n))
     refs = solve_all(list(qps))  # the oracle solves are independent: a worker pool
-    kernels = _all_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    before = launches()
     errs, kkts = [], []
     for sc, (x64, info) in zip(scs, refs):
         kkts.append(info["kkt"])
@@ -117,7 +114,7 @@ def main(argv=None) -> int:
     )
     n_over = int((errs > BUDGET).sum())
     print(f"over the {BUDGET}% BASELINE budget: {n_over}/{args.n}")
-    print("launches: " + json.dumps({n: k.launches for n, k in kernels.items()}), flush=True)
+    print_launches(before)
     return 0 if n_over <= args.max_over else 1
 
 

@@ -51,7 +51,7 @@ def main(argv=None) -> list:
                          "died on single TPU programs at batch >= 8192)")
     args = ap.parse_args(argv)
 
-    from chip_smoke import _all_kernels, print_launches, sync, tool_device
+    from chip_smoke import launches, print_launches, sync, tool_device
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.models import dynamics as D
     from convex_mpc_tpu_torch.sim import engine as E
@@ -63,7 +63,6 @@ def main(argv=None) -> list:
     contact = P.default_contact(device=dev)
     sched = E.constant_schedule(vx=0.5, device=dev)
     base = E.init_state(dyn, n=16)._replace(plant=P.init_plant(dyn, contact=contact))
-    kernels = _all_kernels()
 
     def start(c: int, k: int = 0):
         sb = E.broadcast_batch(base, c)
@@ -83,7 +82,7 @@ def main(argv=None) -> list:
         for _ in range(3):
             subs = [fn(s) for s in subs]
         sync(dev)
-        before = {n: k.launches for n, k in kernels.items()}
+        before = launches()
         best = float("inf")
         for _ in range(3):
             t0 = time.perf_counter()
@@ -91,8 +90,7 @@ def main(argv=None) -> list:
                 subs = [fn(s) for s in subs]
             sync(dev)
             best = min(best, (time.perf_counter() - t0) / args.reps)
-        return best, subs, {n: (k.launches - before[n]) / (3 * args.reps)
-                            for n, k in kernels.items()}
+        return best, subs, {n: v / (3 * args.reps) for n, v in launches(before).items()}
 
     def row(b, best, subs, launches, **extra):
         z = torch.cat([s.plant.q[:, 2] for s in subs])
@@ -108,12 +106,12 @@ def main(argv=None) -> list:
                     print(json.dumps(dict(batch=b, error="not divisible by --chunk")))
                     continue
                 c = args.chunk
-                best, subs, launches = timed(cycle_fn(c, True),
-                                             [start(c, k) for k in range(b // c)])
-                results.append(row(b, best, subs, launches, host_chunk=c, n_programs=b // c))
+                best, subs, per_cycle = timed(cycle_fn(c, True),
+                                              [start(c, k) for k in range(b // c)])
+                results.append(row(b, best, subs, per_cycle, host_chunk=c, n_programs=b // c))
             else:
-                best, subs, launches = timed(cycle_fn(b, args.adaptive), [start(b)])
-                results.append(row(b, best, subs, launches))
+                best, subs, per_cycle = timed(cycle_fn(b, args.adaptive), [start(b)])
+                results.append(row(b, best, subs, per_cycle))
             print(json.dumps(results[-1]), flush=True)
         except Exception as e:  # noqa: BLE001 - report OOM etc. per batch size, as the JAX tool
             print(json.dumps(dict(batch=b, error=str(e)[:200])), flush=True)

@@ -67,7 +67,7 @@ def main(argv=None) -> dict:
         raise SystemExit("torch_time_dashboard: no CUDA device (pass --cpu for the plain CPU path)")
     dev = torch.device("cpu" if args.cpu else "cuda")
 
-    from chip_smoke import _all_kernels, card_identity
+    from chip_smoke import card_identity, launches
     from convex_mpc_tpu_torch.control import gait as G
     from convex_mpc_tpu_torch.models import dynamics as D
     from convex_mpc_tpu_torch.sim import engine as E
@@ -92,7 +92,7 @@ def main(argv=None) -> dict:
     kw = dict(n=n, solver_iters=args.iters, q_diag=cfg.mpc.q_diag,
               r_value=cfg.mpc.r_diag_value, mu_mpc=cfg.mpc.mu, fz_min=cfg.mpc.fz_min)
 
-    kernels = _all_kernels()
+    before = launches()
     n_cycles = int(round(args.seconds * 50))
     t_upd, t_sol, t_app, iters = [], [], [], []
     for cyc in range(n_cycles):
@@ -100,8 +100,7 @@ def main(argv=None) -> dict:
         state_b, log = E.mpc_cycle_batch(dyn, gait_b, contact_b, sched_b, state_b,
                                          profile=prof, **kw)
         if cyc == 0:  # the kernels' first use: discard, and count launches after it
-            for k in kernels.values():
-                k.launches = 0
+            before = launches()
             continue
         dt_u, dt_s, dt_a = (prof[k] * 1e3 for k in ("update", "solve", "apply"))
         t_upd.append(dt_u)
@@ -128,7 +127,7 @@ def main(argv=None) -> dict:
         "note": "mpc_cycle_batch stage marks, the device synchronized at each stage's end; "
                 "host time of the synchronizations not subtracted",
         "device": "cpu" if args.cpu else card_identity(),
-        "launches_per_cycle": {n_: k.launches / timed for n_, k in kernels.items()},
+        "launches_per_cycle": {n_: v / timed for n_, v in launches(before).items()},
     }
     print(json.dumps(report), flush=True)
     if args.json:
