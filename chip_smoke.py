@@ -21,7 +21,8 @@ Phases (any failure exits non-zero and prints no result line):
    per n (``SPD_SIZES``); the structured
    ADMM chunk at B = 512, nb = 40, 64, 96 and 128 (horizons 10-32; nb = 40
    runs the kernel's generic instance), bitwise equal to its plain version
-   after 25 and 150 iterations, each size's cluster shape printed; the
+   after 25 and 150 iterations, each size's cluster shape and slots (three
+   scenarios a CTA at nb = 128) printed; the
    fused tick window (its launch shape printed) at B = 512
    for 20 ticks (5e-3 per channel) and one tick (2e-4), at ragged B = 5,
    13 and 517 (one block per scenario, so no block is partly filled) and at
@@ -461,9 +462,10 @@ def check_admm_chunk(dev) -> list:
     B, worst, rows = B_MAIN, 0.0, {}
     for nb in (40, 64, 96, 128):
         args = structured_problem(B, nb, seed=11, dev=dev)
-        csize, resident = structured_cluster_shape(nb)
-        print(f"admm_iterations_structured nb={nb}: clusters of {csize} CTAs, {resident} "
-              f"resident at once, {B / resident:.2f} waves at B={B}")
+        csize, resident, slots = structured_cluster_shape(nb)
+        print(f"admm_iterations_structured nb={nb}: clusters of {csize} CTAs, {slots} "
+              f"slot(s) a CTA, {resident} resident at once, {B / (resident * slots):.2f} waves "
+              f"at B={B}")
         for iters in (25, 150):
             out = admm_iterations_structured(*args, iters=iters)
             torch.cuda.synchronize()

@@ -26,12 +26,13 @@
 // phase for all m rows was no faster (0.2974-0.4856 ms over six runs): per
 // SM it issued as many instructions per scenario-iteration as before.
 //
-// This design: a cluster of C CTAs per scenario (the smallest C >= 2 whose
-// share fits a CTA: 2 at nz = 192 and 288, 3 at 384) splits the scenario by
-// friction blocks. CTA c owns blocks [c bpc, (c+1) bpc): their 3 bpc columns
-// (the same rows of Minv, and of xt), their 4 bpc face rows and 3 bpc box
-// rows. It keeps those rows of Minv in shared memory and the state of its
-// rows (z, y, rho, l, u, the block's coefficients, x, q) in registers, four
+// This design: a cluster of C CTAs per scenario (up to nz = 256 the
+// smallest C >= 2 whose share fits a CTA, 2 at nz = 192; above, see the
+// end) splits the scenario by friction blocks. CTA c owns blocks
+// [c bpc, (c+1) bpc): their 3 bpc columns (the same rows of Minv, and of
+// xt), their 4 bpc face rows and 3 bpc box rows. It keeps those rows of
+// Minv in shared memory and the state of its rows (z, y, rho, l, u, the
+// block's coefficients, x, q) in registers, four
 // threads per block (thread i: face row i; threads 0-2 also box row and
 // column i). Per iteration:
 //  1. wait until the whole rhs (nz floats) has arrived in this CTA's buffer
@@ -53,6 +54,28 @@
 // B = 512 with the load. Measured (chip_smoke.py, NVIDIA H100 80GB HBM3,
 // 700.00 W, 25 iterations, B = 512): 0.1969 ms at nz = 192, 7.8x the
 // bound; 0.4923 ms at nz = 288 and 0.9628 ms at nz = 384 (clusters of 3).
+//
+// Above nz = 256 the smallest cluster's share of Minv takes most of an SM's
+// shared memory, so that layout kept one CTA, and one iteration chain, on
+// each SM (39 scenarios resident at nz = 384). clock64() stamps of one
+// chain (tools/torch_structured_variants.py `clock`) put ~4,050 cycles in
+// an iteration there: the fold 2,530, the two divisions y / rho 710, the
+// update 355, the send 290, the rhs wait 145. So:
+//  - a zero y skips the division's slow path (over(), at every nz);
+//  - nz = 384 runs S = 3 slots (scenarios) a CTA, each on its own warps,
+//    shared memory, rhs barriers and named barrier, in clusters of 8 (45
+//    resident, 48 rows a slot; the smallest cluster that holds three
+//    slots' rows); nz = 288 one slot in clusters of 3, two CTAs an SM (79
+//    resident against 66 in clusters of 2). Every other nz keeps one slot
+//    in the smallest cluster that fits (slots_for, min_cluster).
+// Measured (same card, 25 iterations, B = 512 / 1,280): nz = 384 0.674 /
+// 1.609 ms against 0.954 / 2.254 before; nz = 288 0.370 / 0.868 against
+// 0.489 / 1.210. One slot at nz = 384 (0.746 / 1.747 with the guard) and
+// two or three slots at nz = 288 lost. The slots' chains keep in step (all
+// start together): a chain's iteration is ~3,600 cycles, its fold ~2,450
+// for 48 rows while the other two slots fold theirs. Starting slots apart,
+// letting their folds take turns, two slots a CTA, and float4 reads of a
+// lane-major Minv were no faster (PERF.md, section 6).
 //
 // Arithmetic order is pinned to the plain PyTorch version (and to the JAX
 // twin admm_iterations_structured_xla), whichever CTA computes a row: the
@@ -84,11 +107,22 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return (v > hi) ? hi : v;
 }
 
-// Shared memory of one CTA, in floats, for bpc owned blocks (rpc = 3 bpc
-// rows of Minv and xt).
+// Shared memory of one slot (one scenario's share of a CTA), in floats, for
+// bpc owned blocks (rpc = 3 bpc rows of Minv and xt); a multiple of 4, so
+// every slot's rows of Minv start 16-byte aligned.
 __host__ __device__ __forceinline__ size_t smem_floats(int nb, int bpc) {
   const size_t nz = 3 * (size_t)nb, rpc = 3 * (size_t)bpc;
-  return rpc * nz + 2 * nz + 2 * rpc;
+  return (rpc * nz + 2 * nz + 2 * rpc + 3) & ~(size_t)3;
+}
+
+// Waits at slot `slot`'s barrier: the whole CTA when it runs one slot, else
+// the slot's own named barrier (1 + slot) over its nts threads.
+template <int S>
+__device__ __forceinline__ void slot_sync(int slot, int nts) {
+  if constexpr (S == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + slot), "r"(nts) : "memory");
 }
 
 // One level of the in-register halving tree, then the next: lanes k and
@@ -132,6 +166,17 @@ __device__ __forceinline__ void fold_lanes(const float* const* Mr, const float (
   for (int i = 0; i < NR; ++i) part[i] = v[i][0];
 }
 
+// y / rho, true division. A zero y over a positive rho gives y itself,
+// which is IEEE's quotient, and the division runs on 1 instead: a zero
+// dividend (every inactive row's y) sends the card's division down its slow
+// path. Measured at nz = 384: an iteration's two divisions took ~700
+// cycles, ~220 with the guard.
+__device__ __forceinline__ float over(float y, float rho) {
+  const bool z = y == 0.0f && rho > 0.0f;
+  const float q = __fdiv_rn(z ? 1.0f : y, rho);
+  return z ? y : q;
+}
+
 // relaxation, projection and dual step of one row, with y / rho and
 // (1 - alpha) z of the previous iterate computed ahead
 __device__ __forceinline__ void step(float axt, float& z, float& y, float rr, float lo, float hi,
@@ -144,8 +189,11 @@ __device__ __forceinline__ void step(float axt, float& z, float& y, float rr, fl
 
 // VPL: lanes of the KKT fold / 32; KFULL: nz / 32 when nz is a multiple of
 // 32, else -1; MAXT, MINB: the launch bounds (threads per CTA, CTAs per SM)
-// that size the register budget.
-template <int VPL, int KFULL, int MAXT, int MINB>
+// that size the register budget; S: slots, the scenarios a CTA runs side by
+// side. Slot s of cluster k runs scenario k S + s on its own warps (threads
+// [s nts, (s + 1) nts)), its own shared memory, rhs barriers and named
+// barrier; a slot past the batch only takes part in the start.
+template <int VPL, int KFULL, int MAXT, int MINB, int S>
 __global__ void __launch_bounds__(MAXT, MINB)
 admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ box,
                        const float* __restrict__ Minv, const float* __restrict__ q,
@@ -153,10 +201,10 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
                        const float* __restrict__ rho, const float* __restrict__ x0,
                        const float* __restrict__ z0, const float* __restrict__ y0,
                        float* __restrict__ xo, float* __restrict__ zo,
-                       float* __restrict__ yo, int nb, int iters, float sigma,
+                       float* __restrict__ yo, int batch, int nb, int iters, float sigma,
                        float alpha, float oma) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ __align__(8) unsigned long long rbar[2];  // one per rhs buffer
+  __shared__ __align__(8) unsigned long long rbar[2 * S];  // per slot, one per rhs buffer
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -164,27 +212,30 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
   const int bpc = (nb + csize - 1) / csize;  // blocks per CTA
   const int bl0 = min(nb, rank * bpc), nbo = min(nb, bl0 + bpc) - bl0;  // this CTA's blocks
   const int r0 = 3 * bl0, r1 = r0 + 3 * nbo;  // its rows of Minv and xt
-  const int b = blockIdx.x / csize, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int nts = blockDim.x / S;  // threads of a slot, a multiple of 32
+  const int slot = threadIdx.x / nts, tid = threadIdx.x - slot * nts;
+  const int b = (blockIdx.x / csize) * S + slot;
+  const bool live = b < batch;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nts >> 5;
 
-  float* sM = smem;                          // 3 bpc x nz: this CTA's rows of Minv
+  float* sM = smem + (size_t)slot * smem_floats(nb, bpc);  // 3 bpc x nz: this slot's rows of Minv
   float* srhs = sM + (size_t)3 * bpc * nz;   // 2 x nz: the whole rhs, double-buffered
   float* sxt = srhs + 2 * nz;                // 2 x 3 bpc: this CTA's rows of xt
 
   const size_t bm = (size_t)b * (mfr + nz), bv = (size_t)b * nz;
   const float* Mg = Minv + (size_t)b * nz * nz + (size_t)r0 * nz;
-  const int mcount = (r1 - r0) * nz;
+  const int mcount = live ? (r1 - r0) * nz : 0;
   if ((nz & 3) == 0) {
-    for (int i = tid; i < mcount / 4; i += blockDim.x)
+    for (int i = tid; i < mcount / 4; i += nts)
       reinterpret_cast<float4*>(sM)[i] = reinterpret_cast<const float4*>(Mg)[i];
   } else {
-    for (int i = tid; i < mcount; i += blockDim.x) sM[i] = Mg[i];
+    for (int i = tid; i < mcount; i += nts) sM[i] = Mg[i];
   }
 
   // The block phase's thread: block blk, face row fi = 4 blk + li; for li < 3
   // also column col = 3 blk + li and box row mfr + col. Its rows' state stays
   // in registers for the whole chunk.
-  const bool mine = tid < 4 * nbo;
+  const bool mine = live && tid < 4 * nbo;
   const int li = tid & 3, blk = bl0 + (tid >> 2);
   const bool has_col = mine && li < 3;
   const int fi = 4 * blk + li, col = 3 * blk + li, bi = mfr + col;
@@ -217,18 +268,19 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
     }
   }
 
-  const uint32_t bar0 = smem_u32(&rbar[0]);  // rbar[1] is bar0 + 8
+  const uint32_t bar0 = smem_u32(&rbar[2 * slot]);  // the slot's second is bar0 + 8
   const uint32_t rhs_bytes = 4u * nz;
   if (tid == 0) {  // armed for the rhs of iterations 0 and 1
     bar_init(bar0);
     bar_init(bar0 + 8);
     bar_init_fence();
-    if (iters > 0) bar_arm(bar0, rhs_bytes);
-    if (iters > 1) bar_arm(bar0 + 8, rhs_bytes);
+    if (live && iters > 0) bar_arm(bar0, rhs_bytes);
+    if (live && iters > 1) bar_arm(bar0 + 8, rhs_bytes);
   }
   // every CTA of the cluster has started (its shared memory and barriers
   // exist) and this CTA's Minv rows are visible to its threads
   cluster.sync();
+  if (!live) return;  // the same slot of every CTA of the cluster is empty
 
   // rhs of this thread's column = (sigma x - q) + A'(rho z - y): the four
   // face rows' w by shuffles within the block's four lanes, then the 4-term
@@ -248,16 +300,16 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
       acc = __fadd_rn(acc, __fmul_rn(cc3, w3));
       acc = __fadd_rn(acc, __fmul_rn(bx, wb));
       const float rv = __fadd_rn(__fsub_rn(__fmul_rn(sigma, xv), qv), acc);
-      const uint32_t slot = smem_u32(srhs + buf * nz + col), bar = bar0 + 8 * buf;
-      for (int c = 0; c < csize; ++c) st_async(map_rank(slot, c), rv, map_rank(bar, c));
+      const uint32_t dst = smem_u32(srhs + buf * nz + col), bar = bar0 + 8 * buf;
+      for (int c = 0; c < csize; ++c) st_async(map_rank(dst, c), rv, map_rank(bar, c));
     }
   };
   if (iters > 0) send_rhs(0);
 
   // y / rho, (1 - alpha) z and (1 - alpha) x of the current iterate, formed
   // while the rhs travels
-  float yrf = __fdiv_rn(yf, rf), ozf = __fmul_rn(oma, zf);
-  float yrb = __fdiv_rn(yb, rb), ozb = __fmul_rn(oma, zb), ox = __fmul_rn(oma, xv);
+  float yrf = over(yf, rf), ozf = __fmul_rn(oma, zf);
+  float yrb = over(yb, rb), ozb = __fmul_rn(oma, zb), ox = __fmul_rn(oma, xv);
 
   const int hi = (lane >> 4) & 1, b3 = (lane >> 3) & 1;
   for (int it = 0; it < iters; ++it) {
@@ -268,7 +320,7 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
       // barrier instead of taking issue slots from the other CTAs
       if (warp == 0) bar_wait(bar0 + 8 * buf, parity);
       __syncthreads();
-    } else {
+    } else {  // every thread polls (slots too: a polling warp and a slot barrier were slower)
       bar_wait(bar0 + 8 * buf, parity);
     }
     // every thread has passed the wait (or sits in the barrier behind it); a
@@ -327,7 +379,7 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
         if ((lane & 7) == 0 && row < r1) xt[row - r0] = w;
       }
     }
-    __syncthreads();  // this CTA's xt complete
+    slot_sync<S>(slot, nts);  // this CTA's xt complete
 
     // update this thread's rows and column from its block's xt, then the
     // next rhs
@@ -346,15 +398,15 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
     }
     if (it + 1 < iters) {
       send_rhs((it + 1) & 1);
-      yrf = __fdiv_rn(yf, rf);
+      yrf = over(yf, rf);
       ozf = __fmul_rn(oma, zf);
-      yrb = __fdiv_rn(yb, rb);
+      yrb = over(yb, rb);
       ozb = __fmul_rn(oma, zb);
       ox = __fmul_rn(oma, xv);
     }
   }
   // Every rhs sent to this CTA was waited for above, and no CTA reads
-  // another's shared memory, so each may exit on its own.
+  // another's shared memory, so each slot may exit on its own.
   if (mine) {
     zo[bm + fi] = zf;
     yo[bm + fi] = yf;
@@ -366,8 +418,8 @@ admm_structured_kernel(const float* __restrict__ C, const float* __restrict__ bo
   }
 }
 
-// Threads per CTA for bpc owned blocks: three fold passes of R rows per warp,
-// and at least four threads per block.
+// Threads of a slot for bpc owned blocks: three fold passes of R rows per
+// warp, and at least four threads per block.
 __host__ __forceinline__ int threads_for(int bpc) {
   const int rpc = 3 * bpc;
   int warps = (rpc + kRowsPerWarp - 1) / kRowsPerWarp;
@@ -383,48 +435,66 @@ struct Operands {
   float sigma, alpha, oma;
 };
 
-// Launches the instance in clusters of csize CTAs if that shape fits; into
-// *clusters how many such clusters can be resident at once (0: it does not
-// fit, and nothing is launched).
-template <int VPL, int KFULL, int MAXT, int MINB>
+// Launches the instance in clusters of csize CTAs of S slots if that shape
+// fits; into *clusters how many such clusters can be resident at once (0: it
+// does not fit, and nothing is launched).
+template <int VPL, int KFULL, int MAXT, int MINB, int S>
 int launch(const Operands& o, int csize, cudaStream_t stream, int* clusters) {
   const int bpc = (o.nb + csize - 1) / csize;
-  auto kernel = admm_structured_kernel<VPL, KFULL, MAXT, MINB>;
+  auto kernel = admm_structured_kernel<VPL, KFULL, MAXT, MINB, S>;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(o.batch, csize, threads_for(bpc),
-                                                smem_floats(o.nb, bpc) * sizeof(float), stream,
-                                                &attr);
+  const cudaLaunchConfig_t cfg = cluster_config((o.batch + S - 1) / S, csize,
+                                                S * threads_for(bpc),
+                                                S * smem_floats(o.nb, bpc) * sizeof(float),
+                                                stream, &attr);
   cudaError_t err = resident_clusters(kernel, cfg, clusters);
   if (err != cudaSuccess || *clusters < 1 || o.batch <= 0) return (int)err;
   err = cudaLaunchKernelEx(&cfg, kernel, o.C, o.box, o.Minv, o.q, o.l, o.u, o.rho, o.x0, o.z0,
-                           o.y0, o.xo, o.zo, o.yo, o.nb, o.iters, o.sigma, o.alpha, o.oma);
+                           o.y0, o.xo, o.zo, o.yo, o.batch, o.nb, o.iters, o.sigma, o.alpha,
+                           o.oma);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// Scenarios a CTA runs side by side at nz = 384.
+constexpr int kSlots = 3;
+
+// The launch for nz = 3 nb, measured on the H100 (header): its slots, and
+// the smallest cluster tried. nz = 384: three slots in clusters of 8, the
+// smallest that holds three slots' rows; nz = 288: one slot in clusters of
+// 3, two CTAs an SM; elsewhere one slot in the smallest cluster of at least
+// 2 CTAs that fits (2 at nz = 120 and 192; several CTAs share an SM).
+int slots_for(int nz) { return nz == 384 ? kSlots : 1; }
+int min_cluster(int nz) { return nz == 384 ? 8 : nz == 288 ? 3 : 2; }
+
 // The instance for nz = 3 nb and csize: the solver's sizes, nz = 12 x
-// horizon at horizons 16, 24, 32, with whole 32-lane chunks known at compile
-// time (nz = 192 in clusters of 2 fits three CTAs of 256 threads per SM);
-// any other nz <= 512 by its fold width.
+// horizon at horizons 16, 24, 32, with whole 32-lane chunks known at
+// compile time (nz = 192 in clusters of 2 fits three CTAs of 256 threads
+// per SM); any other nz <= 512 by its fold width.
 int launch_at(const Operands& o, int csize, cudaStream_t stream, int* clusters) {
   const int nz = 3 * o.nb;
-  if (nz == 192 && csize == 2) return launch<8, 6, 256, 3>(o, csize, stream, clusters);
-  if (nz == 288) return launch<16, 9, 512, 1>(o, csize, stream, clusters);
-  if (nz == 384) return launch<16, 12, 512, 1>(o, csize, stream, clusters);
-  if (nz <= 128) return launch<4, -1, 512, 1>(o, csize, stream, clusters);
-  if (nz <= 256) return launch<8, -1, 512, 1>(o, csize, stream, clusters);
-  return launch<16, -1, 512, 1>(o, csize, stream, clusters);
+  if (nz == 192 && csize == 2) return launch<8, 6, 256, 3, 1>(o, csize, stream, clusters);
+  if (nz == 288) return launch<16, 9, 512, 1, 1>(o, csize, stream, clusters);
+  if (nz == 384) return launch<16, 12, 512, 1, kSlots>(o, csize, stream, clusters);
+  if (nz <= 128) return launch<4, -1, 512, 1, 1>(o, csize, stream, clusters);
+  if (nz <= 256) return launch<8, -1, 512, 1, 1>(o, csize, stream, clusters);
+  return launch<16, -1, 512, 1, 1>(o, csize, stream, clusters);
 }
 
-// Launches in the smallest cluster of at least 2 CTAs whose share of Minv
-// fits one CTA (2 at nz = 192 and 288, 3 at 384); its size into *csize and
-// how many such clusters can be resident at once into *clusters.
-int dispatch(const Operands& o, cudaStream_t stream, int* csize, int* clusters) {
+// A launch's shape: CTAs a cluster, clusters resident at once, slots a CTA.
+struct Shape {
+  int csize, clusters, slots;
+};
+
+// Launches o in the smallest cluster of at least min_cluster CTAs that fits
+// (batch <= 0: launches nothing); its shape into *shape.
+int dispatch(const Operands& o, cudaStream_t stream, Shape* shape) {
   if (o.nb < 1 || 3 * o.nb > 512) return (int)cudaErrorInvalidValue;
-  for (int c = 2; c <= 8; ++c) {
-    const int err = launch_at(o, c, stream, clusters);
-    if (err != 0 || *clusters > 0) {
-      *csize = c;
+  shape->slots = slots_for(3 * o.nb);
+  for (int c = min_cluster(3 * o.nb); c <= 8; ++c) {
+    const int err = launch_at(o, c, stream, &shape->clusters);
+    if (err != 0 || shape->clusters > 0) {
+      shape->csize = c;
       return err;
     }
   }
@@ -446,15 +516,29 @@ extern "C" int admm_structured_f32(const float* C, const float* box, const float
                                    float oma, cudaStream_t stream) {
   const Operands o = {C, box, Minv, q, l, u, rho, x0, z0, y0, xo, zo, yo,
                       batch, nb, iters, sigma, alpha, oma};
-  int csize = 0, clusters = 0;
-  return dispatch(o, stream, &csize, &clusters);
+  Shape shape;
+  return dispatch(o, stream, &shape);
 }
 
-// The cluster admm_structured_f32 launches for nb blocks: its CTAs into
-// *csize and how many such clusters can be resident at once into *clusters.
-// Returns a cudaError_t as above.
-extern "C" int admm_structured_shape(int nb, int* csize, int* clusters) {
+// The launch admm_structured_f32 makes for nb blocks: the CTAs of a cluster
+// into *csize, how many such clusters can be resident at once into
+// *clusters, and the scenarios a CTA runs into *slots. Returns a cudaError_t
+// as above.
+extern "C" int admm_structured_shape(int nb, int* csize, int* clusters, int* slots) {
   const Operands o = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       nullptr, nullptr, nullptr, nullptr, nullptr, 0, nb, 0, 0.f, 0.f, 0.f};
-  return dispatch(o, nullptr, csize, clusters);
+  Shape shape = {0, 0, 0};
+  const int err = dispatch(o, nullptr, &shape);
+  *csize = shape.csize;
+  *clusters = shape.clusters;
+  *slots = shape.slots;
+  return err;
+}
+
+// The scenarios a CTA runs in admm_structured_f32's launch for nb blocks,
+// into *slots, from nb alone (no device query). Returns a cudaError_t.
+extern "C" int admm_structured_slots(int nb, int* slots) {
+  if (nb < 1 || 3 * nb > 512) return (int)cudaErrorInvalidValue;
+  *slots = slots_for(3 * nb);
+  return 0;
 }

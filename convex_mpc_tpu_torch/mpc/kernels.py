@@ -7,7 +7,8 @@ Two kernels each replace a Pallas TPU kernel of
   production ``admm.solve_adaptive``. The CUDA kernel is
   ``csrc/admm_structured.cu`` (a thread-block cluster per scenario whose
   CTAs split it by friction blocks, each with its rows of Minv on chip for
-  the whole chunk; design and bound in its header). The plain version is
+  the whole chunk; at nz = 384 each CTA runs three scenarios side by side;
+  design and bound in its header). The plain version is
   the JAX twin ``admm_iterations_structured_xla`` transcribed: the same
   unrolled block sums and the same binary-tree fold, each product and sum a
   separate eager op, so the kernel (compiled without multiply-add
@@ -116,11 +117,14 @@ def admm_iterations_structured_plain(C, box_diag, Minv, q, l, u, rho_vec, x0, z0
     return x, z, y
 
 
-def structured_cluster_shape(nb: int) -> tuple[int, int]:
-    """The structured kernel's cluster for nb friction blocks: the smallest
-    of at least 2 CTAs whose share of Minv fits one CTA (2 at nb = 64 and 96,
-    3 at 128), and how many are resident at once."""
-    return cuda_build.query("admm_structured", "admm_structured_shape", (nb,), (ctypes.c_int,) * 2)
+def structured_cluster_shape(nb: int) -> tuple[int, int, int]:
+    """The structured kernel's launch for nb friction blocks on the current
+    card: (CTAs a cluster, clusters resident at once, slots: the scenarios a
+    CTA runs side by side). One slot in the smallest cluster of at least 2
+    CTAs whose share of Minv fits one CTA (2 at nb = 40 and 64), but at nb =
+    96 one slot in clusters of 3 (two CTAs an SM) and at nb = 128 three
+    slots in clusters of 8."""
+    return cuda_build.query("admm_structured", "admm_structured_shape", (nb,), (ctypes.c_int,) * 3)
 
 
 _STRUCTURED = cuda_build.Kernel("admm_iterations_structured", "admm_structured",
@@ -129,7 +133,8 @@ _STRUCTURED = cuda_build.Kernel("admm_iterations_structured", "admm_structured",
 
 def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
                                iters: int, sigma: float = 1e-6, alpha: float = 1.6):
-    """The structured ADMM chunk; returns (x, z, y)."""
+    """The structured ADMM chunk; returns (x, z, y). A launch that runs
+    several scenarios in each CTA counts ``admm_slotted``."""
     B, nb = C.shape[0], C.shape[1]
     nz, m = 3 * nb, 7 * nb
     args = (C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0)
@@ -143,6 +148,8 @@ def admm_iterations_structured(C, box_diag, Minv, q, l, u, rho_vec, x0, z0, y0,
     args = [t.contiguous() for t in args]
     out = tuple(torch.empty_like(t) for t in args[-3:])
     cuda_build.launch(_STRUCTURED, args + list(out), (B, nb, iters), (sigma, alpha, 1.0 - alpha))
+    if cuda_build.query("admm_structured", "admm_structured_slots", (nb,), (ctypes.c_int,))[0] > 1:
+        count("admm_slotted")
     return out
 
 

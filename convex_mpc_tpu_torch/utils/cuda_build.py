@@ -13,13 +13,19 @@ version for CPU tensors, the kernel for CUDA tensors), :func:`launch` calls
 a :class:`Kernel`'s C launcher on the current stream, checks the error it
 returns and counts the launch (``launches.<name>`` in ``utils.profiling``),
 and :func:`query` asks a launcher's C side which launch it makes.
+
+The variant tools (``tools/torch_*_variants.py``) build edited copies of a
+kernel's source beside it: :func:`variant_source` edits, :func:`build_variants`
+compiles and loads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -207,3 +213,51 @@ def query(lib: str, symbol: str, sizes, outputs) -> tuple:
     out = [t(0) for t in outputs]
     check(fn(*sizes, *map(ctypes.byref, out)), f"{symbol}{tuple(sizes)}")
     return tuple(v.value for v in out)
+
+
+def variant_source(name: str, subs, csrc: Path = CSRC) -> str:
+    """``csrc/<name>.cu`` with the substitutions ``subs`` applied in turn,
+    each (old, new): a string replaced wherever it occurs, or a compiled
+    regular expression replaced where it matches, which must be exactly
+    once. ValueError where one finds nothing to replace (the source changed
+    under it)."""
+    src = (csrc / f"{name}.cu").read_text()
+    for old, new in subs:
+        if isinstance(old, re.Pattern):
+            src, n = old.subn(new, src)
+            if n != 1:
+                raise ValueError(f"{name}.cu: {old.pattern!r} matches {n} times in {csrc}, not once")
+        elif old in src:
+            src = src.replace(old, new)
+        else:
+            raise ValueError(f"{name}.cu in {csrc} no longer holds {old!r}")
+    return src
+
+
+def build_variants(name: str, sources: dict, out: Path, csrc: Path = CSRC) -> dict:
+    """Each of ``sources`` (variant -> text of ``csrc/<name>.cu``) built in
+    parallel with the kernel's flags into ``out/<variant>/lib.so``, beside a
+    copy of the headers of ``csrc``, and loaded; one JSON line a variant
+    printed with ptxas' register, stack and spill lines. Returns variant ->
+    ctypes.CDLL."""
+    flags = ARCH + BASE_FLAGS + KERNEL_FLAGS[name]
+    procs = {}
+    for variant, src in sources.items():
+        d = out / variant
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{name}.cu").write_text(src)
+        for h in csrc.glob("*.cuh"):
+            (d / h.name).write_text(h.read_text())
+        procs[variant] = subprocess.Popen(
+            [_nvcc(), *flags, "-o", str(d / "lib.so"), str(d / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for variant, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {variant} of {name}.cu:\n{log}")
+        lines = [l.split(":", 1)[-1].strip() for l in log.splitlines()
+                 if "stack frame" in l or "registers" in l]
+        print(json.dumps({"variant": variant, "ptxas": lines}), flush=True)
+        libs[variant] = ctypes.CDLL(str(out / variant / "lib.so"))
+    return libs

@@ -95,3 +95,18 @@ def test_launch_refuses_cpu_tensors(entry):
     with pytest.raises(ValueError, match="CUDA"):
         cuda_build.launch(kernel, tensors, ints, floats)
     assert not any(launches(before).values())
+
+
+@pytest.mark.parametrize("nb", [4, 96, 128])
+def test_structured_cpu_route_counts_no_slotted(nb):
+    """The structured chunk on CPU tensors runs the plain version and counts
+    no ``admm_slotted``, at sizes the card runs in one slot (nb = 4, 96) and
+    at the one it runs in three (nb = 128, nz = 384)."""
+    from convex_mpc_tpu_torch.utils import profiling
+
+    before = profiling.counts().get("admm_slotted", 0)
+    args = structured_problem(1, nb, 0, CPU)
+    out = K.admm_iterations_structured(*args, iters=1)
+    ref = K.admm_iterations_structured_plain(*args, iters=1)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert profiling.counts().get("admm_slotted", 0) == before

@@ -17,7 +17,11 @@ and their neighbours finite; on the solver's KKT at attractor-region rho at
 horizons 16 and 32, spd_inverse's error and residual against the f64
 inverse at most twice the plain version's; the structured ADMM chunk
 bitwise equal to its plain version (nb = 40, 64, 96, 128: horizons 10, 16, 24, 32;
-nb = 40 is the kernel's generic instance). As in
+nb = 40 and 100 run the kernel's generic instances), and at nb = 96 (one
+slot in clusters of 3) and nb = 128 (three slots in clusters of 8) also at
+B = 1, 7, 133, 512 and 2,561 after 1, 2, 25 and 150 iterations, with
+``admm_slotted`` counted once a launch at nb = 128 and never at the other
+sizes, which run one slot. As in
 tests/test_torch_tick_fused.py and tests/test_torch_fixed.py: the fused tick
 window within 5e-3 per channel over 20 ticks and 2e-4 over one tick, masks
 equal (the tick battery comes from ``chip_smoke.tick_battery``, also on a
@@ -61,6 +65,7 @@ from inside an ``mpc.solve.adapt`` span.
 
 from __future__ import annotations
 
+import functools
 import sys
 from pathlib import Path
 
@@ -82,11 +87,15 @@ from convex_mpc_tpu_torch.ops import chol_kernel as TCK  # noqa: E402
 from convex_mpc_tpu_torch.sim import engine as TE  # noqa: E402
 from convex_mpc_tpu_torch.sim import tick_fused as TTF  # noqa: E402
 from convex_mpc_tpu_torch.utils import config as TCFG  # noqa: E402
-from convex_mpc_tpu_torch.utils import interop  # noqa: E402
+from convex_mpc_tpu_torch.utils import interop, profiling  # noqa: E402
 
 torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
+
+# kernel 2's launch at nb = 40 and 64 on the H100 SXM (132 SMs): (CTAs a
+# cluster, clusters resident, slots), as it was before slots existed
+STRUCTURED_SHAPES = {40: (2, 264, 1), 64: (2, 198, 1)}
 
 
 def _need_cuda():
@@ -185,18 +194,72 @@ def test_spd_inverse_shape():
     assert (smem, scratch, csize) == (0, 480 * 484 // 2, 1) and resident >= 1
 
 
-@pytest.mark.parametrize("nb", [40, 64, 96, 128])
+def _slotted() -> int:
+    return profiling.counts().get("admm_slotted", 0)
+
+
+@pytest.mark.parametrize("nb", [40, 64, 96, 100, 128])
 @pytest.mark.parametrize("iters", [1, 25, 150])
 def test_admm_kernel_matches_plain(iters, nb):
+    """One launch, bit for bit the plain version; ``admm_slotted`` counted
+    once where a CTA runs several scenarios (nb = 128) and nowhere else."""
     _need_cuda()
     args = structured_problem(8, nb, seed=11, dev=torch.device("cuda"))
-    before = launches()
+    before, slotted = launches(), _slotted()
     out = TK.admm_iterations_structured(*args, iters=iters)
     torch.cuda.synchronize()
     assert launches(before)["admm_iterations_structured"] == 1
+    assert _slotted() - slotted == (1 if nb == 128 else 0)
     ref = TK.admm_iterations_structured_plain(*args, iters=iters)
     for a, b in zip(out, ref):
         assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+@functools.lru_cache(maxsize=1)
+def _structured_case(B: int, nb: int):
+    return structured_problem(B, nb, seed=17, dev=torch.device("cuda"))
+
+
+# (nb, B, iters): batches that leave slots of the last cluster empty (1, 7,
+# 133), fewer scenarios than the card holds at once, and more (B = 2,561)
+WIDE_CASES = [(nb, B, iters) for nb in (96, 128) for B in (1, 7, 133, 512, 2561)
+              for iters in (1, 2, 25, 150)]
+
+
+@pytest.mark.parametrize("nb,B,iters", WIDE_CASES)
+def test_admm_kernel_wide_matches_plain(nb, B, iters):
+    """The launches above nz = 256 (nb = 96: one slot, two CTAs an SM; nb =
+    128: three slots a CTA) at every batch and iteration count: one launch,
+    ``admm_slotted`` counted once where the launch has slots, x, z and y bit
+    for bit the plain version's."""
+    _need_cuda()
+    args = _structured_case(B, nb)
+    before, slotted = launches(), _slotted()
+    out = TK.admm_iterations_structured(*args, iters=iters)
+    torch.cuda.synchronize()
+    assert launches(before)["admm_iterations_structured"] == 1
+    assert _slotted() - slotted == (1 if TK.structured_cluster_shape(nb)[2] > 1 else 0)
+    ref = TK.admm_iterations_structured_plain(*args, iters=iters)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+def test_structured_cluster_shape():
+    """nb = 40, 64 and 100 keep their launch (one slot in clusters of 2, as
+    many resident as before; on the H100 SXM's 132 SMs). Above nz = 256 the launch
+    keeps more scenarios resident than one slot in the smallest cluster did
+    (66 at nb = 96 in clusters of 2, 39 at nb = 128 in clusters of 3): nb =
+    96 one slot in clusters of 3, two CTAs an SM; nb = 128 three slots in
+    clusters of 8."""
+    _need_cuda()
+    for nb, shape in STRUCTURED_SHAPES.items():
+        assert TK.structured_cluster_shape(nb) == shape
+    csize, resident, slots = TK.structured_cluster_shape(96)
+    assert (csize, slots) == (3, 1) and resident > 66
+    csize, resident, slots = TK.structured_cluster_shape(128)
+    assert (csize, slots) == (8, 3) and 3 * resident > 39
+    csize, resident, slots = TK.structured_cluster_shape(100)  # the generic instance
+    assert (csize, slots) == (2, 1) and resident >= 1
 
 
 def _tick_window_pair(B, steps, seed, duty=0.6):
@@ -436,8 +499,6 @@ def test_time_fn_matches_cuda_ms():
     _need_cuda()
     from chip_smoke import cuda_ms
 
-    from convex_mpc_tpu_torch.utils import profiling
-
     args = structured_problem(512, 64, seed=11, dev=torch.device("cuda"))
     chunk = lambda: TK.admm_iterations_structured(*args, iters=25)  # noqa: E731
     t_fn = profiling.time_fn(chunk, reps=10) * 1e3
@@ -448,8 +509,6 @@ def test_time_fn_matches_cuda_ms():
 def test_profiled_cycle_spans_are_host_only():
     _need_cuda()
     from benchmark.trace import Trace
-
-    from convex_mpc_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     dyn, gait, contact, sched, state = start_batch(64, dev)
@@ -644,8 +703,6 @@ def test_profiled_cycle_adapt_fused_without_gemv():
     once a chunk, 40, each kernel launches once a chunk, and no cuBLAS GEMV
     runs from inside an ``mpc.solve.adapt`` span."""
     _need_cuda()
-    from convex_mpc_tpu_torch.utils import profiling
-
     dev = torch.device("cuda")
     dyn, gait, contact, sched, state = start_batch(256, dev)
     kw = TCFG.engine_kwargs_batched(TCFG.DEFAULT_CONFIG)

@@ -3,7 +3,8 @@
 ``tools/torch_bench.py``, ``tools/torch_realtime_latency.py``, the two
 parity tools, ``tools/torch_time_dashboard.py``, the two
 ``examples/torch_*.py`` demos, ``tools/torch_cycle_profile.py``,
-``tools/torch_dense_variants.py``, ``tools/torch_spd_variants.py`` or the eleven ports of the remaining JAX
+``tools/torch_dense_variants.py``, ``tools/torch_spd_variants.py``,
+``tools/torch_structured_variants.py`` or the eleven ports of the remaining JAX
 tools imports JAX or the JAX package (not
 even its modules that use no JAX). An AST scan, so imports inside functions count
 too. ``tests/qp_oracle.py`` (numpy and scipy only) is allowed: it is the
@@ -26,7 +27,8 @@ FILES = sorted((ROOT / "convex_mpc_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / f"torch_{name}.py" for name in (
         "multi_config_bench", "scaling_bench", "run_sched_batch", "cycle_ablation",
         "solve_ablation", "long_sweep", "reference_loop", "blocked_linalg", "kkt_microbench",
-        "spd_kernel_bench", "check_bitexact", "dense_variants", "spd_variants")]
+        "spd_kernel_bench", "check_bitexact", "dense_variants", "spd_variants",
+        "structured_variants")]
 BANNED = ("jax", "jaxlib", "convex_mpc_tpu")
 
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -102,36 +101,12 @@ def clock_segments(lib, iters: int = 25) -> dict:
     return {k: [len(v), sum(v) / len(v)] for k, v in seg.items()}
 
 
-def variant_source(name: str) -> str:
-    src = (cuda_build.CSRC / "admm_dense.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the source no longer holds {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def build(names) -> dict:
-    """Each variant's library, built in parallel; prints ptxas' stack and spill lines."""
-    flags = cuda_build.ARCH + cuda_build.BASE_FLAGS + cuda_build.KERNEL_FLAGS["admm_dense"]
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "admm_dense.cu").write_text(variant_source(name))
-        for h in cuda_build.CSRC.glob("*.cuh"):
-            (d / h.name).write_text(h.read_text())
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *flags, "-o", str(d / "lib.so"), str(d / "admm_dense.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    """Each variant's entry points (launcher, shape query, library), built in
+    parallel (``cuda_build.build_variants``)."""
+    sources = {n: cuda_build.variant_source("admm_dense", VARIANTS[n]) for n in names}
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        spills = [l.split(":", 1)[-1].strip() for l in log.splitlines() if "stack frame" in l]
-        print(json.dumps({"variant": name, "ptxas": spills}))
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+    for name, lib in cuda_build.build_variants("admm_dense", sources, OUT).items():
         run = lib.admm_dense_f32
         run.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
             ctypes.c_void_p]

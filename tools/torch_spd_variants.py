@@ -38,7 +38,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -137,38 +136,11 @@ def clock_segments(lib) -> dict:
                              for k, name in enumerate(PHASE1)}} for r in (0, 1)}
 
 
-def variant_source(name: str) -> str:
-    src = (cuda_build.CSRC / "spd_inverse.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the source no longer holds {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def build(names) -> dict:
-    """Each variant's library, built in parallel; prints ptxas' register,
-    stack and spill lines."""
-    flags = cuda_build.ARCH + cuda_build.BASE_FLAGS + cuda_build.KERNEL_FLAGS["spd_inverse"]
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "spd_inverse.cu").write_text(variant_source(name))
-        for h in cuda_build.CSRC.glob("*.cuh"):
-            (d / h.name).write_text(h.read_text())
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *flags, "-o", str(d / "lib.so"), str(d / "spd_inverse.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        lines = [l.split(":", 1)[-1].strip() for l in log.splitlines()
-                 if "stack frame" in l or "registers" in l]
-        print(json.dumps({"variant": name, "ptxas": lines}))
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
+    """Each variant's library, built in parallel (``cuda_build.build_variants``)."""
+    sources = {n: cuda_build.variant_source("spd_inverse", VARIANTS[n]) for n in names}
+    libs = cuda_build.build_variants("spd_inverse", sources, OUT)
+    for lib in libs.values():
         lib.spd_inverse_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                                         + [ctypes.c_void_p])
         lib.spd_inverse_f32.restype = ctypes.c_int
@@ -177,7 +149,6 @@ def build(names) -> dict:
                                           ctypes.POINTER(ctypes.c_int),
                                           ctypes.POINTER(ctypes.c_int)]
         lib.spd_inverse_shape.restype = ctypes.c_int
-        libs[name] = lib
     return libs
 
 
