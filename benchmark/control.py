@@ -40,9 +40,8 @@ def control_readings(cfg: dict, kept: dict) -> dict:
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        g = cfg["gait"]
         f32 = lambda k: sc[k].astype(np.float32)  # noqa: E731
-        low = RC.Setting(cfg, g["frequency_hz"], g["duty"],
+        low = RC.Setting(cfg, harness.gait_rows(cfg, sc["gait"]),
                          np.stack([f32("vx"), f32("vy"), f32("wz")], 1), f32("kn"), f32("dn"),
                          f32("mu"), device, torch.float32)
         start = {k: v.index_select(0, kept["rows"]) for k, v in

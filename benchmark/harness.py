@@ -8,6 +8,12 @@ the deployment's MPC, gait and plant settings) and a traffic mix
 (see ``load_metric``). Each cycle of the window is one call of the system's
 ``mpc_cycle_batch`` with the production settings, every scenario starting
 from the state its last cycle returned.
+
+A configuration states its gaits (``gaits``: a list, each named and
+stating its own ``gait_period`` and ``mpc_dt``); the traffic says which
+scenario runs which (``traffic.py``). The program and the reference are
+handed exactly each scenario's gait, and an MPC step of its period over
+the horizon.
 """
 
 from __future__ import annotations
@@ -99,14 +105,52 @@ def card_identity(device) -> dict:
             "power_limit_w": limit}
 
 
-def engine_kwargs(cfg: dict) -> dict:
-    """The system's production settings at the configuration's horizon,
-    held to what the configuration states."""
-    from convex_mpc_tpu_torch.utils.config import EngineConfig, MpcConfig, engine_kwargs_batched
+GAIT_KEYS = ("phase_offset", "frequency_hz", "duty", "swing_height", "touchdown_z",
+             "gait_period", "mpc_dt")
 
-    kw = engine_kwargs_batched(EngineConfig(mpc=MpcConfig(horizon=cfg["horizon"])))
+
+def config_gaits(cfg: dict) -> dict[str, dict]:
+    """The configuration's ``gaits`` by name, each with the keys
+    ``GAIT_KEYS``. Each stated period is held to 1 / frequency and each MPC
+    step to period / horizon."""
+    named = {g["name"]: g for g in cfg["gaits"]}
+    if len(named) != len(cfg["gaits"]):
+        raise RuntimeError("the configuration names a gait twice")
+    for name, g in named.items():
+        for key, want in (("gait_period", 1.0 / g["frequency_hz"]),
+                          ("mpc_dt", g["gait_period"] / cfg["horizon"])):
+            if not math.isclose(g[key], want, rel_tol=1e-12):
+                raise RuntimeError(f"gait {name!r} states {key} {g[key]!r}, its gait gives "
+                                   f"{want!r}")
+    return {name: {k: g[k] for k in GAIT_KEYS} for name, g in named.items()}
+
+
+def gait_rows(cfg: dict, names) -> dict[str, np.ndarray]:
+    """Each scenario's gait from its name (``names``, (B,)): float64 arrays
+    (B,) of each of ``GAIT_KEYS``, (B, 4) for ``phase_offset``."""
+    gaits = config_gaits(cfg)
+    kinds, which = np.unique(np.asarray(names), return_inverse=True)
+    return {k: np.array([gaits[n][k] for n in kinds], dtype=np.float64)[which.reshape(-1)]
+            for k in GAIT_KEYS}
+
+
+def engine_kwargs(cfg: dict, gait: str | None = None) -> dict:
+    """The system's production settings at the configuration's horizon and
+    its gait ``gait`` (by default its first), held to what the configuration
+    states."""
+    from convex_mpc_tpu_torch.utils.config import (EngineConfig, GaitConfig, MpcConfig,
+                                                   engine_kwargs_batched)
+
+    gaits = config_gaits(cfg)
+    g = gaits[next(iter(gaits)) if gait is None else gait]
+    kw = engine_kwargs_batched(EngineConfig(
+        gait=GaitConfig(frequency_hz=g["frequency_hz"], duty=g["duty"],
+                        phase_offset=tuple(g["phase_offset"]), swing_height=g["swing_height"],
+                        touchdown_z=g["touchdown_z"]),
+        mpc=MpcConfig(horizon=cfg["horizon"])))
+    stated = {**cfg, "mpc_dt": g["mpc_dt"]}
     for key, ckey in ENGINE_KEYS.items():
-        want, got = cfg[ckey], kw[key]
+        want, got = stated[ckey], kw[key]
         same = (list(map(float, want)) == list(map(float, got)) if isinstance(want, list)
                 else math.isclose(float(want), float(got), rel_tol=1e-12))
         if not same:
@@ -118,31 +162,38 @@ class Program:
     """The system under test: the scenario batch and its closed loop."""
 
     def __init__(self, cfg: dict, tr: dict, sc: dict, device):
+        from convex_mpc_tpu_torch.control import gait as G
         from convex_mpc_tpu_torch.models import dynamics as D
         from convex_mpc_tpu_torch.mpc import admm
         from convex_mpc_tpu_torch.sim import engine as E
         from convex_mpc_tpu_torch.sim import scenarios as S
 
         self.E, self.admm = E, admm
-        self.kw = engine_kwargs(cfg)
         self.fused = bool(tr["fused_ticks"])
         self.dyn = D.build_dyn(device=device)
-        g = cfg["gait"]
+        # each named gait once, from the port's public constructor, then
+        # gathered by each scenario's gait
+        gaits = config_gaits(cfg)
+        kinds, which = np.unique(sc["gait"], return_inverse=True)
+        table = [G.make_gait_params(g["frequency_hz"], g["duty"], g["phase_offset"],
+                                    g["swing_height"], g["touchdown_z"], device=device)
+                 for g in (gaits[n] for n in kinds)]
+        rows = torch.as_tensor(which.reshape(-1), device=device)
+        gait = G.GaitParams(*(torch.stack(f).index_select(0, rows) for f in zip(*table)))
+        # one MPC step where every scenario's period is the same, else each
+        # scenario's own
+        self.kw = engine_kwargs(cfg, sc["gait"][0])
+        steps = gait_rows(cfg, sc["gait"])["mpc_dt"]
+        if (steps != steps[0]).any():
+            self.kw = {**self.kw, "mpc_dt": torch.as_tensor(steps, dtype=torch.float32,
+                                                            device=device)}
         cmds = np.stack([sc["vx"], sc["vy"], sc["wz"]], 1).astype(np.float32)
-        b = S.make_batch(self.dyn, cmds, z_des=cfg["z_des"], gait_hz=g["frequency_hz"],
-                         gait_duty=g["duty"], mu=sc["mu"].astype(np.float32),
+        b = S.make_batch(self.dyn, cmds, z_des=cfg["z_des"], mu=sc["mu"].astype(np.float32),
                          kn=sc["kn"].astype(np.float32), dn=sc["dn"].astype(np.float32),
                          n_horizon=cfg["horizon"])
-        for field, want in (("phase_offset", g["phase_offset"]),
-                            ("swing_height", g["swing_height"]),
-                            ("touchdown_z", g["touchdown_z"])):
-            got = getattr(b.gait, field)[0].cpu().double().numpy()
-            if not np.allclose(got, want, rtol=1e-6, atol=0):
-                raise RuntimeError(f"the system's gait {field} is {got}, the configuration "
-                                   f"states {want}")
         q = b.state.plant.q.clone()
         q[:, 0] += torch.as_tensor(sc["x_offset"].astype(np.float32), device=device)
-        self.batch = b
+        self.batch = b._replace(gait=gait)
         self.state = b.state._replace(plant=b.state.plant._replace(q=q))
 
     def cycle(self, profile=None):
@@ -157,8 +208,7 @@ def reference_setting(cfg: dict, sc: dict, device) -> RC.Setting:
     """The reference's deployment in float64, from the same generated inputs
     as the system's (rounded to the float32 the system is handed)."""
     f32 = lambda k: sc[k].astype(np.float32).astype(np.float64)  # noqa: E731
-    g = cfg["gait"]
-    return RC.Setting(cfg, g["frequency_hz"], g["duty"],
+    return RC.Setting(cfg, gait_rows(cfg, sc["gait"]),
                       np.stack([f32("vx"), f32("vy"), f32("wz")], 1), f32("kn"), f32("dn"),
                       f32("mu"), device, torch.float64)
 
@@ -185,7 +235,7 @@ def run_cell(cell: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
     breaks the program after set-up: a callable given the Program. ``keep``,
     when a dict, receives what was judged (for the control's readings)."""
     cfg, tr = cell.config, cell.traffic
-    sc = traffic.scenarios(tr, seed)
+    sc = traffic.scenarios(tr, seed, list(config_gaits(cfg)))
     rows_l, check_cycles = traffic.check_plan(tr, seed)
     rows = torch.as_tensor(rows_l, device=device)
     on_cuda = device.type == "cuda"
@@ -266,7 +316,8 @@ def run_cell(cell: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
                 batch=B, horizon=cfg["horizon"], nz=12 * cfg["horizon"],
                 steps=cfg["steps_per_mpc"], fused=prog.fused, stage_s=stage, stage_cycles=n,
                 iters=torch.stack(iters).cpu().numpy(), counters={}, prog=prog,
-                contact=prog.batch.contact, power_limit_w=ident.get("power_limit_w"),
+                contact=prog.batch.contact, gaits=sc["gait"],
+                power_limit_w=ident.get("power_limit_w"),
                 trace=None, prof_logs=[], patch=patch)
             readers = {m["name"]: load_metric(cell.metrics_dir, m["name"])
                        for m in cell.per_layer}

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from benchmark.reference import condensed
@@ -39,19 +40,29 @@ STATE_KEYS = ("q", "dq", "last_mask", "takeoff_time", "swing_p0", "swing_td", "p
 
 
 class Setting:
-    """What a deployment fixes: the model in ``dtype`` on ``device``, the
-    gait, the contact, each scenario's command, and the MPC's settings."""
+    """What a deployment fixes: the model in ``dtype`` on ``device``, each
+    scenario's gait and MPC step, the contact, each scenario's command, and
+    the MPC's settings. ``mpc_dt`` is a float where every scenario's gait
+    period is the same, else a (B,) float64 tensor."""
 
-    def __init__(self, cfg: dict, gait_hz, duty, commands, kn, dn, mu, device, dtype):
-        """``cfg``: the configuration's ``mpc``/``sim`` settings; ``commands``
-        (B, 3) [vx, vy, wz]; ``kn``, ``dn``, ``mu`` (B,) or scalars."""
+    def __init__(self, cfg: dict, gait: dict, commands, kn, dn, mu, device, dtype):
+        """``cfg``: the configuration's ``mpc``/``sim`` settings; ``gait``:
+        each scenario's ``frequency_hz``, ``duty``, ``swing_height``,
+        ``touchdown_z`` and ``gait_period`` (B,) and ``phase_offset`` (B, 4),
+        float64; ``commands`` (B, 3) [vx, vy, wz]; ``kn``, ``dn``, ``mu``
+        (B,) or scalars."""
         self.cfg = cfg
         self.dyn = D.build_dyn(device=device, dtype=dtype)
         B = commands.shape[0]
         t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
         vec = lambda v: t(v).expand(B).clone()  # noqa: E731
-        g = G.make_gait_params(gait_hz, duty, device=device, dtype=dtype)
-        self.gait = G.GaitParams(*(v.expand((B,) + tuple(v.shape)).clone() for v in g))
+        self.gait = G.GaitParams(
+            period=t(1.0 / np.asarray(gait["frequency_hz"], np.float64)), duty=t(gait["duty"]),
+            phase_offset=t(gait["phase_offset"]), swing_height=t(gait["swing_height"]),
+            touchdown_z=t(gait["touchdown_z"]))
+        step = np.asarray(gait["gait_period"], np.float64) / cfg["horizon"]
+        self.mpc_dt = (float(step[0]) if (step == step[0]).all() else
+                       torch.as_tensor(step, dtype=torch.float64, device=device))
         base = P.default_contact(device=device, dtype=dtype)
         self.contact = P.ContactParams(
             kn=vec(kn), dn=vec(dn), mu=vec(mu), vtol=vec(base.vtol), ground_z=vec(0.0),
@@ -66,13 +77,10 @@ class Setting:
         out = object.__new__(Setting)
         out.cfg, out.dyn = self.cfg, self.dyn
         out.gait = G.GaitParams(*(v[idx] for v in self.gait))
+        out.mpc_dt = self.mpc_dt[idx] if torch.is_tensor(self.mpc_dt) else self.mpc_dt
         out.contact = P.ContactParams(*(v[idx] for v in self.contact))
         out.cmd = R.BodyCommand(*(v[idx] for v in self.cmd))
         return out
-
-    @property
-    def mpc_dt(self) -> float:
-        return self.cfg["gait_period"] / self.cfg["horizon"]
 
 
 def init_state(st: Setting, x_offset) -> dict:

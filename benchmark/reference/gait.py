@@ -56,6 +56,15 @@ def _bc(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 CLOCK = torch.float32
 
 
+def step_rows(dt, dtype, axes: int):
+    """An MPC step ``dt`` in ``dtype``, to broadcast against batch-first
+    tensors: a float stays as it is; a (B,) tensor, each scenario's step,
+    gains ``axes`` trailing unit axes."""
+    if not torch.is_tensor(dt):
+        return dt
+    return dt.to(dtype).reshape((-1,) + (1,) * axes)
+
+
 def phase_masks(gait: GaitParams, t) -> torch.Tensor:
     """Stance (1) or swing (0) of each leg at the times ``t`` (B, k) in the
     clock's float32 arithmetic -> (B, k, 4) int32."""
@@ -67,9 +76,10 @@ def phase_masks(gait: GaitParams, t) -> torch.Tensor:
 
 
 def contact_table(gait: GaitParams, t0, dt, n: int) -> torch.Tensor:
-    """Contact schedule (B, 4, n) int32, 1 = stance; midpoint sampling."""
+    """Contact schedule (B, 4, n) int32, 1 = stance; midpoint sampling.
+    ``dt``: a float, or (B,) each scenario's step."""
     k = torch.arange(n, dtype=CLOCK, device=t0.device)
-    t = t0.to(CLOCK)[:, None] + k * dt + dt / 2.0  # (B, n)
+    t = t0.to(CLOCK)[:, None] + k * step_rows(dt, CLOCK, 1) + step_rows(dt / 2.0, CLOCK, 1)
     return phase_masks(gait, t).transpose(1, 2)
 
 

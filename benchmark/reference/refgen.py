@@ -67,7 +67,8 @@ def generate(
     brake_accel: float = 0.0,
     brake_alpha: float = 0.0,
 ) -> tuple[ReferenceTraj, RefGenState]:
-    """One MPC-rate reference generation for a batch (time_now (B,))."""
+    """One MPC-rate reference generation for a batch (time_now (B,); dt a
+    float, or (B,) each scenario's step)."""
     x0 = obs.x_vec
     B = x0.shape[0]
     dev = x0.device
@@ -80,7 +81,7 @@ def generate(
             [brake_accel or math.inf, brake_accel or math.inf, brake_alpha or math.inf],
             dtype=x0.dtype, device=dev)
         braking = torch.abs(v_tgt) < torch.abs(state.vel_cmd)
-        lim = rate * dt
+        lim = rate * G.step_rows(dt, x0.dtype, 1)
         dv = torch.clamp(v_tgt - state.vel_cmd, -lim, lim)
         v_cmd = torch.where(braking, state.vel_cmd + dv, v_tgt)
     else:
@@ -97,8 +98,9 @@ def generate(
         "bij,bj->bi", rot_z(yaw),
         torch.stack([cmd.vx, cmd.vy, torch.zeros_like(cmd.vx)], dim=-1))
 
-    t_vec = (torch.arange(n, device=dev) + 1).to(x0.dtype) * dt  # (N,)
-    pos_traj = pos_des[:, :, None] + vel_des_world[:, :, None] * t_vec  # (B, 3, N)
+    t_vec = ((torch.arange(n, device=dev) + 1).to(x0.dtype)
+             * G.step_rows(dt, x0.dtype, 1)).expand(B, n)
+    pos_traj = pos_des[:, :, None] + vel_des_world[:, :, None] * t_vec[:, None, :]  # (B, 3, N)
     vel_traj = vel_des_world[:, :, None].expand(B, 3, n)
     yaw_traj = yaw[:, None] + cmd.yaw_rate[:, None] * t_vec  # (B, N)
     zeros = torch.zeros((B, n), dtype=x0.dtype, device=dev)
@@ -118,7 +120,7 @@ def generate(
     r_td_all = td_all - pos_traj_t[:, :, None, :]
 
     # masks at the exact times t + i dt (not midpoints)
-    k = torch.arange(n, device=dev).to(G.CLOCK) * dt
+    k = torch.arange(n, device=dev).to(G.CLOCK) * G.step_rows(dt, G.CLOCK, 1)
     masks = G.phase_masks(gait, time_now.to(G.CLOCK)[:, None] + k)  # (B, N, 4)
 
     mask_prev = torch.full((B, 4), 2, dtype=torch.int32, device=dev)

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, harness, spans, traffic
+from benchmark import check, harness, spans
 
-from conftest import small_cell
+from conftest import scenarios, small_cell
 
 CELL = "h10_sweep10k.fused"
 PER_LAYER = ("update_ms", "solve_ms", "apply_ms", "solve_iters", "launches_per_cycle",
@@ -29,7 +29,8 @@ def test_cell_loads_with_its_files():
     cfg = c.config
     assert (cfg["name"], cfg["horizon"], cfg["qp_variables"], cfg["qp_rows"]) == (
         "go2_trot_h10", 10, 120, 280)
-    assert cfg["mpc_dt"] == pytest.approx(cfg["gait_period"] / 10, rel=1e-15)
+    (g,) = cfg["gaits"]
+    assert g["mpc_dt"] == pytest.approx(g["gait_period"] / 10, rel=1e-15)
     assert harness.engine_kwargs(cfg)["n"] == 10
     tr = c.traffic
     assert tr["batch"] == 10240 and tr["fused_ticks"] is True and tr["set_seed"] == 20261017
@@ -47,7 +48,7 @@ def test_cell_loads_with_its_files():
     for m in c.per_layer:
         assert m["moves"] == "solves_per_s" and m["workloads"] == [CELL]
         assert callable(harness.load_metric(c.metrics_dir, m["name"]).read)
-    sc = traffic.scenarios(tr, 2**31 + 5)
+    sc = scenarios(c, 2**31 + 5)
     assert sc["vx"].shape == (10240,) and -0.3 <= sc["vx"].min() < sc["vx"].max() <= 0.8
 
 
@@ -55,7 +56,7 @@ def test_reference_follows_the_system_at_horizon_10():
     """One judged cycle at B = 4 from the reference's own start: the QP, the
     forces against the QP's optimum and the plant after the ticks."""
     cell = small_cell(CELL, batch=4)
-    sc = traffic.scenarios(cell.traffic, 2**31 + 13)
+    sc = scenarios(cell, 2**31 + 13)
     dev = torch.device("cpu")
     prog = harness.Program(cell.config, cell.traffic, sc, dev)
     rows = torch.arange(4)

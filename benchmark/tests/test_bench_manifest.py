@@ -12,7 +12,7 @@ import pytest
 
 from benchmark import harness, traffic
 
-from conftest import ROOT
+from conftest import ROOT, scenarios
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -47,20 +47,28 @@ def test_cell_loads_with_every_file(cell):
         assert m["moves"] in e2e
         assert callable(harness.load_metric(c.metrics_dir, m["name"]).read)
     harness.engine_kwargs(c.config)  # the system's production settings are the config's
-    assert set(traffic.scenarios(c.traffic, 1)) == set(traffic.PARAMS)
+    assert set(scenarios(c, 1)) == set(traffic.PARAMS)
 
 
-def test_new_cell_needs_only_new_files(tmp_path):
+@pytest.mark.parametrize("gaits", [False, True])
+def test_new_cell_needs_only_new_files(tmp_path, gaits):
     """A dummy configuration, traffic and cell added as new files to a copy
-    of the benchmark load through the same loader."""
+    of the benchmark load through the same loader: with the one gait of the
+    accepted configurations, or with two gaits and a traffic of ``shares``."""
     shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     m = json.loads(json.dumps(MANIFEST))
     conf = json.loads((ROOT / "benchmark/configs/go2_trot_h16.json").read_text())
     conf.update(name="dummy_h16", horizon=16)
-    (tmp_path / "benchmark/configs/dummy_h16.json").write_text(json.dumps(conf))
     tr = json.loads((ROOT / "benchmark/traffic/sweep1k_fused.json").read_text())
     tr.update(batch=1, vx=0.3, vy=0.0, wz=0.0, x_offset=0.0)
+    if gaits:
+        (g,) = conf["gaits"]
+        conf["gaits"] = [{**g, "name": name, "phase_offset": po}
+                         for name, po in (("trot", [0.5, 0.0, 0.0, 0.5]),
+                                          ("bound", [0.0, 0.0, 0.5, 0.5]))]
+        tr.update(batch=4, gait={"shares": {"trot": 0.75, "bound": 0.25}})
+    (tmp_path / "benchmark/configs/dummy_h16.json").write_text(json.dumps(conf))
     (tmp_path / "benchmark/traffic/dummy_walk.json").write_text(json.dumps(tr))
     (tmp_path / "benchmark/limits/dummy.walk.json").write_text(
         (ROOT / "benchmark/limits/h16_sweep1k.fused.json").read_text())
@@ -72,4 +80,7 @@ def test_new_cell_needs_only_new_files(tmp_path):
     c = harness.load_cell("dummy.walk", root=tmp_path)
     assert c.config["name"] == "dummy_h16" and c.traffic["vx"] == 0.3
     assert [x["name"] for x in c.end_to_end] == ["setup_s"]
-    assert traffic.scenarios(c.traffic, 5)["vx"].tolist() == [0.3]
+    sc = scenarios(c, 5)
+    assert sc["vx"].tolist() == [0.3] * tr["batch"]
+    assert sorted(sc["gait"].tolist()) == (["bound"] + ["trot"] * 3 if gaits else ["trot"])
+    assert harness.engine_kwargs(c.config)["n"] == 16

@@ -8,11 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, harness, traffic
 from benchmark.reference import condensed as RCo
 from benchmark.reference import qp as RQ
 
-from conftest import small_cell
+from conftest import follow, small_cell
 
 
 @pytest.mark.parametrize("name,fused", [("h16_sweep1k.fused", False), ("h16_sweep1k.fused", True),
@@ -20,32 +19,7 @@ from conftest import small_cell
 def test_reference_follows_the_system(name, fused):
     """On the system's eager tick loop and on the plain version of its fused
     window."""
-    cell = small_cell(name, batch=3 if name.startswith("h16") else 1, fused_ticks=fused)
-    sc = traffic.scenarios(cell.traffic, 11)
-    dev = torch.device("cpu")
-    prog = harness.Program(cell.config, cell.traffic, sc, dev)
-    rows = torch.arange(cell.traffic["batch"])
-    setting = harness.reference_setting(cell.config, sc, dev)
-    from benchmark.reference import cycle as RC
-
-    start = RC.init_state(setting, sc["x_offset"].astype(np.float32).astype(np.float64))
-    cap = check.Capture(rows)
-    solve = prog.admm.solve_adaptive
-    prog.admm.solve_adaptive = cap.wrap(solve)
-    try:
-        for i in range(3):
-            s_in = check.state_rows(prog.state, rows)
-            cap.armed = True
-            prog.cycle()
-            cap.armed = False
-            # the first cycle from the reference's own start, then from the system's
-            gaps = check.stage_gaps(setting, start if i == 0 else s_in, cap.qp,
-                                    check.state_rows(prog.state, rows))
-            assert gaps["qp_gap"].max() < 1e-5  # f32 assembly against float64
-            assert gaps["u0_gap"].max() < 0.02  # the force-parity budget, 2% of m g
-            assert gaps["plant_gap"].max() < 1e-4 and gaps["carry_gap"].max() < 1e-4
-    finally:
-        prog.admm.solve_adaptive = solve
+    follow(small_cell(name, batch=3 if name.startswith("h16") else 1, fused_ticks=fused))
 
 
 def test_interior_point_meets_kkt():
