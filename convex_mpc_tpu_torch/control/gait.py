@@ -56,10 +56,20 @@ def _bc(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.ndim - x.ndim))
 
 
+def step_rows(dt, axes: int):
+    """An MPC step ``dt`` to broadcast against batch-first tensors: a float
+    stays as it is; a (B,) tensor, each scenario's step, gains ``axes``
+    trailing unit axes."""
+    if not torch.is_tensor(dt):
+        return dt
+    return dt.reshape((-1,) + (1,) * axes)
+
+
 def contact_table(gait: GaitParams, t0, dt, n: int) -> torch.Tensor:
-    """Contact schedule (B, 4, n) int32, 1 = stance; midpoint sampling."""
+    """Contact schedule (B, 4, n) int32, 1 = stance; midpoint sampling.
+    ``dt``: a float, or a (B,) tensor of each scenario's step."""
     k = torch.arange(n, dtype=F32, device=t0.device)
-    t = t0[:, None] + k * dt + dt / 2.0  # (B, n)
+    t = t0[:, None] + k * step_rows(dt, 1) + step_rows(dt / 2.0, 1)  # (B, n)
     phases = torch.remainder(
         gait.phase_offset[:, :, None] + t[:, None, :] / gait.period[:, None, None], 1.0
     )

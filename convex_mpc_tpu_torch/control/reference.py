@@ -69,7 +69,8 @@ def generate(
     brake_accel: float = 0.0,
     brake_alpha: float = 0.0,
 ) -> tuple[ReferenceTraj, RefGenState]:
-    """One MPC-rate reference generation for a batch (time_now (B,))."""
+    """One MPC-rate reference generation for a batch (time_now (B,); dt a
+    float or a (B,) tensor of each scenario's step)."""
     x0 = obs.x_vec
     B = x0.shape[0]
     dev = x0.device
@@ -82,7 +83,7 @@ def generate(
             [brake_accel or math.inf, brake_accel or math.inf, brake_alpha or math.inf],
             dtype=F32, device=d))
         braking = torch.abs(v_tgt) < torch.abs(state.vel_cmd)
-        lim = rate * dt
+        lim = rate * G.step_rows(dt, 1)
         dv = torch.clamp(v_tgt - state.vel_cmd, -lim, lim)
         v_cmd = torch.where(braking, state.vel_cmd + dv, v_tgt)
     else:
@@ -99,8 +100,8 @@ def generate(
         "bij,bj->bi", rot_z(yaw),
         torch.stack([cmd.vx, cmd.vy, torch.zeros_like(cmd.vx)], dim=-1))
 
-    t_vec = (torch.arange(n, device=dev) + 1).to(F32) * dt  # (N,)
-    pos_traj = pos_des[:, :, None] + vel_des_world[:, :, None] * t_vec  # (B, 3, N)
+    t_vec = (torch.arange(n, device=dev) + 1).to(F32) * G.step_rows(dt, 1)  # (N,) or (B, N)
+    pos_traj = pos_des[:, :, None] + vel_des_world[:, :, None] * t_vec[..., None, :]  # (B, 3, N)
     vel_traj = vel_des_world[:, :, None].expand(B, 3, n)
     yaw_traj = yaw[:, None] + cmd.yaw_rate[:, None] * t_vec  # (B, N)
     zeros = torch.zeros((B, n), dtype=F32, device=dev)
@@ -120,7 +121,7 @@ def generate(
     r_td_all = td_all - pos_traj_t[:, :, None, :]
 
     # masks at the exact times t + i dt (not midpoints)
-    k = torch.arange(n, device=dev).to(F32) * dt
+    k = torch.arange(n, device=dev).to(F32) * G.step_rows(dt, 1)
     t_i = time_now[:, None] + k  # (B, N)
     phases = torch.remainder(
         gait.phase_offset[:, None, :] + t_i[:, :, None] / gait.period[:, None, None], 1.0

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from convex_mpc_tpu_torch.control.gait import step_rows
 from convex_mpc_tpu_torch.ops.rotations import hat, rot_z
 
 GRAVITY = 9.81
@@ -58,14 +59,15 @@ def discretize(yaw_avg, r_feet_world, mass, inertia_world, dt) -> SrbDynamics:
     """Exact ZOH discretization over the horizon.
 
     yaw_avg (B,), r_feet_world (B, N, 4, 3), mass (B,) or (), inertia_world
-    (B, 3, 3), dt a float.
+    (B, 3, 3), dt a float or a (B,) tensor of each scenario's step.
     """
     B, n = r_feet_world.shape[0], r_feet_world.shape[1]
     dtype, device = r_feet_world.dtype, r_feet_world.device
     eye = torch.eye(NX, dtype=dtype, device=device)
     Ac = continuous_A(yaw_avg)
-    E = eye * dt + Ac * (dt * dt / 2.0)
-    Ad = eye + Ac * dt
+    h = step_rows(dt, 2)
+    E = eye * h + Ac * step_rows(dt * dt / 2.0, 2)
+    Ad = eye + Ac * h
 
     I_inv = torch.linalg.inv(inertia_world)  # (B, 3, 3)
     ang = torch.einsum("bij,bnfjk->bnfik", I_inv, hat(r_feet_world))  # (B, N, 4, 3, 3)

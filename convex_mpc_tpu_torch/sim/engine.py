@@ -250,7 +250,10 @@ def _run_ticks(dyn, gait, contact, cmd, traj, u0, plant0, leg0, yaw_cont, yaw_pr
 def cycle_update(dyn, gait, sched, state, qd, n, mpc_dt, r_value, mu_mpc, fz_min,
                  brake_accel=0.0, brake_alpha=0.0):
     """Batched "update" stage: command lookup + observation + reference
-    generation + condensed QP assembly."""
+    generation + condensed QP assembly. ``mpc_dt``: a float, or a (B,)
+    tensor of each scenario's step (counted as ``mpc_dt_rows``)."""
+    if torch.is_tensor(mpc_dt):
+        count("mpc_dt_rows", mpc_dt.numel())
     with span("mpc.update.observe"):
         cmd = lookup_command(sched, state.t)
         obs, yaw_cont, yaw_prev = observe(dyn, state.plant, state.yaw_cont, state.yaw_prev,
@@ -324,7 +327,7 @@ def mpc_cycle_batch(
     steps_per_mpc: int = 20,
     solver_iters: int = 1000,
     tau_max: float = 45.0,
-    mpc_dt: float = (1.0 / 3.0) / 16,
+    mpc_dt: float | torch.Tensor = (1.0 / 3.0) / 16,
     sim_dt: float = 1e-3,
     q_diag=(1, 1, 50, 10, 20, 1, 2, 2, 1, 1, 1, 1),
     r_value: float = 1e-5,
@@ -343,10 +346,13 @@ def mpc_cycle_batch(
     """One MPC period for a scenario batch with the batch-global adaptive solver.
 
     ``gait``/``contact``/``sched``/``state`` leaves carry a leading batch
-    axis. ``use_fused_ticks`` as in :func:`cycle_apply`. ``profile``, when a
-    dict, accumulates the seconds of the update, solve and apply stages under
-    those keys (each stage then ends in a device synchronization; the apply
-    stage covers the fused window too). The stages' spans
+    axis. ``mpc_dt`` is a float, one MPC step for every scenario, or a (B,)
+    float32 tensor on the batch's device, each scenario's own step (a mix of
+    gait periods over one horizon). ``use_fused_ticks`` as in
+    :func:`cycle_apply`. ``profile``, when a dict, accumulates the seconds
+    of the update, solve and apply stages under those keys (each stage then
+    ends in a device synchronization; the apply stage covers the fused
+    window too). The stages' spans
     (``utils.profiling.span``) never synchronize.
     """
     count("cycles")
@@ -388,7 +394,7 @@ def mpc_cycle_fixed(
     steps_per_mpc: int = 20,
     solver_iters: int = 200,
     tau_max: float = 45.0,
-    mpc_dt: float = (1.0 / 3.0) / 16,
+    mpc_dt: float | torch.Tensor = (1.0 / 3.0) / 16,
     sim_dt: float = 1e-3,
     q_diag=(1, 1, 50, 10, 20, 1, 2, 2, 1, 1, 1, 1),
     r_value: float = 1e-5,
@@ -409,7 +415,7 @@ def mpc_cycle_fixed(
 
     Kept as the iteration->throughput reference curve and for solver
     comparisons; production runs :func:`mpc_cycle_batch`. Inputs carry a
-    leading batch axis, as there.
+    leading batch axis, and ``mpc_dt`` is a float or a (B,) tensor, as there.
     """
     if formulation not in ("condensed", "full"):
         raise ValueError(f"formulation is 'condensed' or 'full', got {formulation!r}")
